@@ -1,30 +1,45 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port's LDM grasp-generation path.
+"""On-card smoke run of the PyTorch/CUDA port's grasp-generation paths.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
 It imports only ``graspldm_tpu_torch`` (never JAX) and exits non-zero if
-any phase fails:
+any phase fails (every phase runs; the failures are listed at the end):
 
 1. print the card's name and power limit (``nvidia-smi``); CUDA is required;
-2. build the kernels from ``graspldm_tpu_torch/csrc`` with ``nvcc``;
-3. hold each kernel against its plain PyTorch version on the card at the
-   main path's shapes, in float32 (TF32 off) and bfloat16, and time both
-   with CUDA events;
-4. drive the full-width fpc flagship (random weights from a seeded
-   ``torch.Generator``): ``ldm_generate`` for 4 clouds x 1024 points, 1024
-   grasps each, 100 DDIM steps, bfloat16 kernels (twice: the first call
-   pays the one-time set-up), then ``vae_generate``;
-5. serve 3 ``POST /v1/generate`` requests through ``GraspServer`` on an
-   ephemeral localhost port;
-6. hold a small float32 ``ldm_generate`` on the card against the same call
-   on the CPU, where every kernel wrapper runs its plain version.
+2. build the kernels from ``graspldm_tpu_torch/csrc`` with ``nvcc`` (one
+   process per source, in parallel);
+3. hold each kernel against its plain PyTorch version on the card, in
+   float32 (TF32 off) and bfloat16, and time both with CUDA events: the
+   stage/final/DDIM kernels at the fpc flagship's shapes (BG = 4096 rows),
+   ``dpmpp_sampler_kernel`` (32 steps) and ``churn_sampler_kernel`` (100
+   steps) at fpc, and all three sampler kernels at the ppc denoiser's
+   L = 16 (checked at BG = 1021 over 8 steps, then checked and timed at
+   BG = 1024 with their full step counts); the EDM kernels' bf16 rounding
+   points are also held over 2 steps at both, against bf16's own spread;
+4. the DDIM main path: the full-width fpc flagship (random weights from a
+   seeded ``torch.Generator``), ``ldm_generate`` for 4 clouds x 1024
+   points, 1024 grasps each, 100 DDIM steps, bf16 kernels (twice: the first
+   call pays the one-time set-up), ``vae_generate``, 3
+   ``POST /v1/generate`` requests through ``GraspServer`` on an ephemeral
+   localhost port, and the ppc flagship (``z_pc [3, 256]``, latent 16)
+   with DDIM at 100 steps for one cloud x 1024 grasps;
+5. the EDM main path: the EDM fpc flagship, ``ldm_generate`` with
+   DPM-Solver++(2M) at 32 steps and with churn at 100 steps (each twice),
+   the EDM ppc flagship with DPM++ at 32 and churn at 100 steps for one
+   cloud x 1024 grasps, and 3 requests through a second ``GraspServer``
+   (DPM++, 32 steps);
+6. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn) on the
+   card against the same calls on the CPU, where every kernel wrapper runs
+   its plain version.
 
-The kernel launch counts are zeroed just before phase 4 and read just after
-phase 5. The second-to-last line is the kernels' JSON record; the last line
-is ``{"ok": true, "device": {...}}``.
+The kernel launch counts are zeroed just before each main path (4 and 5)
+and read just after it; every call inside checks its exact counts, and
+each launch is booked to the configuration (fpc or ppc) of its call. The
+script prints its wall time, then the kernels' JSON record, then as its
+last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -35,6 +50,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 import urllib.request
 
 import numpy as np
@@ -42,7 +58,14 @@ import torch
 
 SEED = 0
 B, N_POINTS, G, STEPS = 4, 1024, 1024, 100
-BG = B * G  # rows every kernel sees on the main path
+BG = B * G  # rows every kernel sees on the fpc main path
+EDM_STEPS = {"dpmpp": 32, "churn": 100}
+EDM_SHORT_STEPS = 2  # the EDM kernels' rounding-point check (see TOL_BF16_EDM_STEP_MEAN)
+PPC = dict(pc_latent_size=256, grasp_latent_size=16)
+PPC_BG_CHECK, PPC_STEPS_CHECK = 1021, 8  # ragged at 4 rows per block (bf16) and 2 (fp32)
+PPC_BG = 1024
+PPC_STEPS = {"ddim": 100, "dpmpp": 32, "churn": 100}
+
 # float32: the kernel and the plain version do the same float32 math and
 # differ only in summation order (~1e-6 relative measured); 1e-4 relative
 # is far above that and far below any error in the math itself.
@@ -52,12 +75,59 @@ TOL_FP32 = 1e-4
 # way in one of them (1 ulp) and move what follows by about as much again:
 # 4 ulps (2^-5 relative) of the output's largest magnitude.
 TOL_BF16 = 2.0 ** -5
-# bfloat16 sampler: such 1-ulp flips in eps recur over 100 steps and carry
-# through the update; x_0 is clipped to [-1, 1]. 8 ulps at 1.0, absolute.
+# bfloat16 DDIM sampler: such 1-ulp flips in eps recur over 100 steps and
+# carry through the update; x_0 is clipped to [-1, 1]. 8 ulps at 1.0,
+# absolute.
 TOL_BF16_SAMPLER = 2.0 ** -4
+# bfloat16 EDM samplers, relative to max|x_0| (no clip). x starts at
+# sigma_max = 80 and each step mixes the network's output into it. Where
+# the kernel and its plain version round an fp32 sum to the other side of
+# a bf16 boundary (1 ulp), that row's later roundings no longer match, and
+# over a whole trajectory its distance grows toward the spread of bf16
+# itself (plain bf16 vs plain fp32 on the same inputs; both are printed).
+# On an H100 80GB HBM3 at 700 W the kernel read max 4.3e-3 / 1.2e-2
+# (DPM++ 32 / churn 100, fpc), 3.8e-3 / 2.9e-3 (ppc) and up to 8.7e-3 over
+# 8 steps at BG = 1021; mean 5.9e-5 / 1.7e-4 (fpc), 3.9e-4 / 4.0e-4 (ppc),
+# up to 4.9e-4. The spread read max 2.6e-2 / 1.9e-2 and 6.4e-3 / 5.1e-3,
+# mean 1.3e-3 / 1.6e-3 and 9.0e-4 / 8.4e-4. So at L = 16 the two come
+# within a factor of about 2 over a whole trajectory, and no limit there
+# separates the kernel from one that ran its network in fp32. These two
+# catch a wrong update, table or row (O(1)) and keep the kernel inside
+# bf16's own noise:
+TOL_BF16_EDM = 2.0 ** -4  # largest error (5x the largest reading)
+TOL_BF16_EDM_MEAN = 2.0 ** -9  # mean error (4x the largest reading)
+# The rounding points are held on EDM_SHORT_STEPS-step trajectories,
+# before flips spread. On an H100 80GB HBM3 at 700 W the kernel's mean
+# error read 2.8e-5 / 4.3e-5 (DPM++ / churn, fpc) and 1.2e-4 / 2.9e-4
+# (ppc) there, the spread 4.7e-3 / 2.1e-3 and 3.1e-3 / 1.9e-3. The
+# script fails if a spread is not above this limit, i.e. if a kernel that
+# ran its network in fp32 would pass. (Only bf16 is held there: a 2-step
+# churn divides by sigma_min = 0.002 in its Heun step, so x_0 carries
+# about 2e4 times any difference in the network's output, fp32's too.)
+TOL_BF16_EDM_STEP_MEAN = 2.0 ** -10.5  # mean error
 # float32 end to end, card vs CPU: PVCNN (cuDNN vs CPU convolutions) and
-# 100 sampler steps reorder sums; grasp entries are O(1).
+# the sampler's steps reorder sums; grasp entries are O(1).
 TOL_E2E = 1e-3
+
+# the card's published peaks (NVIDIA H100 SXM data sheet, dense) for the
+# bound: bf16 products on the tensor cores, fp32 on the CUDA cores, and HBM
+PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
+PEAK_BYTES = 3.35e12
+
+REPLACES = {
+    "stage_kernel": "graspldm_tpu/models/stacked_pallas.py:900",
+    "final_kernel": "graspldm_tpu/models/stacked_pallas.py:914",
+    "ddim_sampler_kernel": "graspldm_tpu/models/pallas_sampler.py:482",
+    "dpmpp_sampler_kernel": "graspldm_tpu/models/pallas_sampler.py:513",
+    "churn_sampler_kernel": "graspldm_tpu/models/pallas_sampler.py:535",
+}
+SOURCES = {
+    "stage_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
+    "final_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
+    "ddim_sampler_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
+    "dpmpp_sampler_kernel": "graspldm_tpu_torch/csrc/dpmpp_sampler.cu",
+    "churn_sampler_kernel": "graspldm_tpu_torch/csrc/churn_sampler.cu",
+}
 
 
 def log(*a) -> None:
@@ -85,30 +155,170 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare(name: str, got: torch.Tensor, ref: torch.Tensor, tol_rel: float,
-            absolute: bool = False) -> float:
-    err = (got.float() - ref.float()).abs()
-    top = ref.float().abs().max().item()
-    tol = tol_rel if absolute else tol_rel * max(1.0, top)
-    max_err = err.max().item()
-    ok = bool(torch.isfinite(got.float()).all()) and max_err <= tol
-    log(f"  {name}: max_abs_err {max_err:.3e} (rel {max_err / max(top, 1e-30):.3e}, "
-        f"mean {err.mean().item():.3e}, max|ref| {top:.3f}) tol {tol:.3e} "
-        f"-> {'ok' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError(f"{name}: kernel disagrees with its plain version")
-    return max_err
+def counters():
+    from graspldm_tpu_torch.models import cuda_sampler as cs
+    from graspldm_tpu_torch.models import stacked_cuda as sc
+
+    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL,
+            cs.CHURN_KERNEL)
 
 
-def build_models(dtype: str, seed: int = SEED):
+def counts() -> dict:
+    return {c.name: c.launches for c in counters()}
+
+
+class Run:
+    """What one run of this script gathers: the checks that failed, the
+    kernels' measurements (one record per kernel and shape) and the launch
+    counts the current main path must have reached."""
+
+    def __init__(self):
+        self.failures: list = []
+        self.records: dict = {}  # (name, config) -> {"L", "BG", "steps", "fp32": {}, "bf16": {}}
+        self.expected: dict = {}
+        self.paths: list = []
+        self.launches: dict = {}  # (main path, kernel, config) -> launches
+
+    def compare(self, name: str, got: torch.Tensor, ref: torch.Tensor, tol_rel: float,
+                tol_mean: float | None = None, absolute: bool = False) -> float:
+        """Max and (given ``tol_mean``) mean error against limits relative
+        to max|ref| (``absolute``: the limit itself); returns the max."""
+        err = (got.float() - ref.float()).abs()
+        top = ref.float().abs().max().item()
+        scale = 1.0 if absolute else max(1.0, top)
+        max_err, mean_err = err.max().item(), err.mean().item()
+        ok = bool(torch.isfinite(got.float()).all()) and max_err <= tol_rel * scale
+        if tol_mean is not None:
+            ok = ok and mean_err <= tol_mean * scale
+        log(f"  {name}: max_abs_err {max_err:.3e} (rel {max_err / max(top, 1e-30):.3e}, "
+            f"mean {mean_err:.3e}, mean rel {mean_err / max(top, 1e-30):.3e}, "
+            f"max|ref| {top:.3f}) tol {tol_rel * scale:.3e}"
+            + (f", mean tol {tol_mean * scale:.3e}" if tol_mean is not None else "")
+            + f" -> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            self.failures.append(f"{name}: kernel disagrees with its plain version")
+        return max_err
+
+    def record(self, name: str, config: str, L: int, BG_: int, steps, tag: str,
+               what: str | None = None, **res) -> dict:
+        r = self.records.setdefault((name, config), dict(L=L, BG=BG_, steps=steps, what=what))
+        r.setdefault(tag, {}).update(res)
+        return r[tag]
+
+    def reset_counts(self, path: str) -> None:
+        for c in counters():
+            c.launches = 0
+        self.paths.append(path)
+        self.expected = counts()
+        self.seen = counts()
+
+    def expect_more(self, phase: str, config: str, **more) -> None:
+        """Exact counts: the ones so far plus ``more`` (every other count
+        unchanged); the launches since the last check are booked to
+        ``config``."""
+        for k, v in more.items():
+            self.expected[k] += v
+        c = counts()
+        log(f"  launches so far: {c}")
+        for k, n in c.items():
+            key = (self.paths[-1], k, config)
+            self.launches[key] = self.launches.get(key, 0) + n - self.seen[k]
+        self.seen = c
+        if c != self.expected:
+            raise AssertionError(f"{phase}: launch counts {c}, expected {self.expected}")
+
+    def phase(self, name: str, fn, *args) -> None:
+        """Run one phase; a failure is logged and listed, and the run goes on."""
+        try:
+            fn(self, *args)
+        except Exception:
+            log(f"[{name}] FAILED:\n{traceback.format_exc()}")
+            self.failures.append(f"phase {name} raised")
+
+
+def spread(run: Run, name: str, bf16: torch.Tensor, fp32: torch.Tensor,
+           mean_limit: float | None = None) -> dict:
+    """How far bf16 itself moves a result: plain bf16 vs plain fp32, max and
+    mean, relative to max|fp32|. Given ``mean_limit`` (a kernel's bf16
+    mean limit), the mean must lie above it: else a kernel that ran its
+    network in fp32 would pass."""
+    top = max(fp32.abs().max().item(), 1e-30)
+    d = (bf16 - fp32).abs()
+    res = dict(max_rel=d.max().item() / top, mean_rel=d.mean().item() / top)
+    caught = mean_limit is None or res["mean_rel"] > mean_limit
+    log(f"  {name}: plain bf16 vs plain fp32 max rel {res['max_rel']:.3e}, mean rel "
+        f"{res['mean_rel']:.3e} of max|fp32| {top:.3f}"
+        + ("" if mean_limit is None else
+           f"; above the mean limit {mean_limit:.3e}: {'yes' if caught else 'NO'}"))
+    if not caught:
+        run.failures.append(f"{name}: the bf16 limit would pass an fp32 network")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# work and bytes from the shapes, for the bound
+# ---------------------------------------------------------------------------
+
+HD = 4 * 32  # heads x head channels of every attention
+
+
+def stage_macs(d, i: int) -> int:
+    """Multiply-adds of network stage ``i`` for one row (products only)."""
+    L, E, C, Co = d.seq_len, d.emb_dim, d.cins[i], d.block_channels[i]
+    res = E * 2 * C + 2 * L * 3 * C * C
+    attn = L * C * 3 * HD + 2 * L * L * HD + L * HD * C
+    return 2 * res + attn + L * 3 * C * Co
+
+
+def final_macs(d) -> int:
+    L, E, C = d.seq_len, d.emb_dim, d.block_channels[-1]
+    return E * 2 * C + 2 * L * 3 * C * C + L * C
+
+
+def net_macs(d) -> int:
+    """One evaluation of the whole network for one row (init conv included)."""
+    return 7 * d.seq_len * d.cins[0] + sum(stage_macs(d, i) for i in range(
+        len(d.block_channels))) + final_macs(d)
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def bound(flops: float, nbytes_: int, tag: str) -> dict:
+    t_ops, t_mem = flops / PEAK_FLOPS[tag], nbytes_ / PEAK_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_mem),
+                bound_by="operations" if t_ops >= t_mem else "bytes", flops=flops,
+                bytes=nbytes_)
+
+
+def sampler_bound(w, evals: int, BG_: int, tag: str, *operands) -> dict:
+    """``evals`` network evaluations per row over BG_ rows; each operand
+    (and the weights, and the [BG_, L] fp32 output) moved once."""
+    out = BG_ * w.dims.seq_len * 4
+    return bound(2.0 * net_macs(w.dims) * evals * BG_,
+                 nbytes(w.flat, w.layout, *operands) + out, tag)
+
+
+# ---------------------------------------------------------------------------
+# kernel phases
+# ---------------------------------------------------------------------------
+
+
+def build_models(dtype: str, device, seed: int = SEED, **cfg):
     from graspldm_tpu_torch.flagship import FlagshipConfig, build_flagship
 
     gen = torch.Generator().manual_seed(seed)
-    return build_flagship(FlagshipConfig(denoiser_dtype=dtype), generator=gen)
+    return build_flagship(FlagshipConfig(denoiser_dtype=dtype, **cfg), generator=gen,
+                          device=device)
 
 
-def kernel_phase(vae, ddm, diffusion, dev) -> dict:
-    """Each kernel against its plain version at the main path's shapes."""
+def tag_of(dt) -> str:
+    return "fp32" if dt == torch.float32 else "bf16"
+
+
+def kernel_phase(run: Run, vae, ddm, diffusion, dev) -> None:
+    """stage/final/DDIM kernels against their plain versions at fpc shapes."""
     from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
     from graspldm_tpu_torch.models.cuda_sampler import (
         sampler_apply, sampler_plain, sampler_tables,
@@ -125,7 +335,6 @@ def kernel_phase(vae, ddm, diffusion, dev) -> dict:
     z_pc = torch.randn((BG, 3, 64), generator=gen, device=dev)
     z_h = torch.randn((BG, 4), generator=gen, device=dev)
     x_T = torch.randn((BG, 4), generator=gen, device=dev)
-    res = {k: {} for k in ("stage_kernel", "final_kernel", "ddim_sampler_kernel")}
 
     ddims = decoder_dims_for(vae)
     dec_math = pack_math_weights(vae.decoder.net, ddims)
@@ -133,38 +342,43 @@ def kernel_phase(vae, ddm, diffusion, dev) -> dict:
     den_math = pack_math_weights(ddm, den_dims)
     dec = vae.decoder
     for dt in (torch.float32, torch.bfloat16):
-        tag = "fp32" if dt == torch.float32 else "bf16"
-        log(f"[kernels] {tag}, BG={BG}")
+        tag = tag_of(dt)
+        log(f"[kernels] fpc {tag}, BG={BG}")
         w = PackedNet(dec_math, ddims, dt, dev)
         emb = compute_emb_s_stacked(w.aux, None, z_pc).to(dt)
         x_in = dec.in_layer(z_h)  # [BG, 16]
         x = init_conv(w, x_in).reshape(BG, -1).to(dt)
         errs, k_ms, p_ms = [], 0.0, 0.0
-        stages = []
+        stages, flops, moved = [], 0.0, 0
         for i in range(len(ddims.block_channels)):
             ref = stage_plain(w, i, x, emb)
             got = stage_apply(w, i, x, emb)
             torch.cuda.synchronize()
             C, Co = ddims.cins[i], ddims.block_channels[i]
-            errs.append(compare(f"stage_kernel L=16 {C}->{Co}", got, ref,
-                                TOL_FP32 if tag == "fp32" else TOL_BF16))
+            errs.append(run.compare(f"stage_kernel L=16 {C}->{Co}", got, ref,
+                                    TOL_FP32 if tag == "fp32" else TOL_BF16))
             stages.append((i, x))
+            flops += 2.0 * stage_macs(ddims, i) * BG
+            moved += nbytes(x, emb, ref, *(t for k, t in w.w.items() if k.startswith(f"b{i}")))
             x = ref
         for i, xi in stages:
             k_ms += cuda_ms(lambda: stage_apply(w, i, xi, emb), 10)
             p_ms += cuda_ms(lambda: stage_plain(w, i, xi, emb), 3)
-        res["stage_kernel"][tag] = dict(err=max(errs), ms=k_ms, plain_ms=p_ms)
+        run.record("stage_kernel", "fpc", 16, BG, None, tag, what="decoder, 4 launches",
+                   err=max(errs), ms=k_ms, plain_ms=p_ms, **bound(flops, moved, tag))
         log(f"  stage_kernel, 4 launches of one decode: kernel {k_ms:.3f} ms, "
             f"plain {p_ms:.3f} ms")
 
         ref = final_plain(w, x, emb)
         got = final_apply(w, x, emb)
         torch.cuda.synchronize()
-        err = compare("final_kernel L=16 256->1", got, ref,
-                      TOL_FP32 if tag == "fp32" else TOL_BF16)
+        err = run.compare("final_kernel L=16 256->1", got, ref,
+                          TOL_FP32 if tag == "fp32" else TOL_BF16)
         k_ms = cuda_ms(lambda: final_apply(w, x, emb), 10)
         p_ms = cuda_ms(lambda: final_plain(w, x, emb), 3)
-        res["final_kernel"][tag] = dict(err=err, ms=k_ms, plain_ms=p_ms)
+        moved = nbytes(x, emb, ref, *(t for k, t in w.w.items() if k.startswith("final")))
+        run.record("final_kernel", "fpc", 16, BG, None, tag, what="decoder", err=err, ms=k_ms,
+                   plain_ms=p_ms, **bound(2.0 * final_macs(ddims) * BG, moved, tag))
         log(f"  final_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
 
         wd = PackedNet(den_math, den_dims, dt, dev)
@@ -180,18 +394,147 @@ def kernel_phase(vae, ddm, diffusion, dev) -> dict:
             ref = sampler_plain(*args, *clip)
             got = sampler_apply(*args, *clip)
             torch.cuda.synchronize()
-            err = compare(f"ddim_sampler_kernel {sampler} L=4 x {STEPS} steps", got, ref,
-                          TOL_FP32 if tag == "fp32" else TOL_BF16_SAMPLER,
-                          absolute=tag == "bf16")
+            err = run.compare(f"ddim_sampler_kernel {sampler} L=4 x {STEPS} steps", got, ref,
+                              TOL_FP32 if tag == "fp32" else TOL_BF16_SAMPLER,
+                              absolute=tag == "bf16")
             if sampler == "ddim":
                 k_ms = cuda_ms(lambda: sampler_apply(*args, *clip), 3)
                 p_ms = cuda_ms(lambda: sampler_plain(*args, *clip), 2)
-                res["ddim_sampler_kernel"][tag] = dict(err=err, ms=k_ms, plain_ms=p_ms)
+                run.record("ddim_sampler_kernel", "fpc", 4, BG, STEPS, tag, err=err, ms=k_ms,
+                           plain_ms=p_ms, **sampler_bound(wd, STEPS, BG, tag, x_T, embin,
+                                                           trows, coefs))
                 log(f"  ddim_sampler_kernel ddim: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
             else:
-                res["ddim_sampler_kernel"][tag]["err"] = max(
-                    res["ddim_sampler_kernel"][tag]["err"], err)
-    return res
+                r = run.records[("ddim_sampler_kernel", "fpc")][tag]
+                r["err"] = max(r["err"], err)
+
+
+def sampler_runs(w, ed, input_emb, x_unit, noise, steps: dict, sched=None):
+    """(name, kind, kernel call, plain call, evaluations per row, operands)
+    for the EDM kernels and, given a DDPM schedule, the DDIM kernel, over
+    the rows of ``x_unit`` (unit normals; EDM starts at sigma_max times it).
+    Churn needs 2N - 1 network evaluations: the last step's second one
+    cannot reach x_0 (sigma_next = 0). The kernel runs it anyway
+    (csrc/churn_sampler.cu says why); the bound counts only what is needed."""
+    from graspldm_tpu_torch.models import cuda_sampler as cs
+
+    x_edm = (ed.sigma_max * x_unit).contiguous()
+    dp = cs.dpmpp_tables(w, ed, input_emb, steps["dpmpp"])
+    ch = cs.churn_tables(w, ed, input_emb, steps["churn"])
+    nz = noise[: steps["churn"]]
+    runs = [
+        ("dpmpp_sampler_kernel", "dpmpp", lambda: cs.dpmpp_sampler_apply(w, x_edm, *dp),
+         lambda: cs.dpmpp_sampler_plain(w, x_edm, *dp, False), steps["dpmpp"], (x_edm, *dp)),
+        ("churn_sampler_kernel", "churn", lambda: cs.churn_sampler_apply(w, x_edm, *ch, nz),
+         lambda: cs.churn_sampler_plain(w, x_edm, *ch, nz, False), 2 * steps["churn"] - 1,
+         (x_edm, *ch, nz)),
+    ]
+    if sched is not None and "ddim" in steps:
+        S = steps["ddim"]
+        tb = cs.sampler_tables(w, sched, input_emb, S, "ddim", "fixed_large")
+        runs.insert(0, ("ddim_sampler_kernel", "ddim", lambda: cs.sampler_apply(w, x_unit, *tb),
+                        lambda: cs.sampler_plain(w, x_unit, *tb, None, True, 1.0), S,
+                        (x_unit, *tb)))
+    return runs
+
+
+def hold(run: Run, w, runs, steps: dict, config: str, bg: int, mode: str, refs: dict,
+         full_bg: int, full_steps: dict) -> None:
+    """Each sampler kernel of ``runs`` (from :func:`sampler_runs` over ``bg``
+    rows, ``steps`` per kind) against its plain version. ``mode``: "full"
+    (the record's own shape: also timed, and the bf16 spread printed),
+    "ragged" (a ragged BG) or "short" (the EDM rounding-point check, bf16
+    only). float32 runs first and leaves its plain results in ``refs``."""
+    L, tag = w.dims.seq_len, tag_of(w.dtype)
+    for name, kind, kern, plain, evals, ops in runs:
+        ref = plain()
+        if mode == "short" and tag == "fp32":
+            refs[(name, mode)] = ref  # the spread's reference only (see TOL_BF16_EDM_STEP_MEAN)
+            continue
+        got = kern()
+        torch.cuda.synchronize()
+        ddim = kind == "ddim"
+        if tag == "fp32":
+            tols = (TOL_FP32, None)
+        elif ddim:
+            tols = (TOL_BF16_SAMPLER, None)
+        else:
+            tols = (TOL_BF16_EDM, TOL_BF16_EDM_STEP_MEAN if mode == "short" else TOL_BF16_EDM_MEAN)
+        err = run.compare(f"{name} {config} L={L} BG={bg} x {steps[kind]} steps", got, ref,
+                          *tols, absolute=tag == "bf16" and ddim)
+        r = run.record(name, config, L, full_bg, full_steps[kind], tag)
+        r.setdefault("err_checked_at", []).append(dict(BG=bg, steps=steps[kind], max_abs_err=err))
+        if mode == "full":
+            r["err"] = err
+        if tag == "fp32":
+            refs[(name, mode)] = ref
+        elif mode != "ragged":
+            key = "bf16_vs_fp32_plain" + ("_short" if mode == "short" else "")
+            r[key] = spread(run, name, ref, refs[(name, mode)],
+                            TOL_BF16_EDM_STEP_MEAN if mode == "short" else None)
+        if mode == "full":
+            k_ms = cuda_ms(kern, 3)
+            p_ms = cuda_ms(plain, 2)
+            r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, tag, *ops))
+            log(f"  {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+
+
+def edm_kernel_phase(run: Run, ddm, ed, dev) -> None:
+    """The two EDM kernels against their plain versions at fpc shapes."""
+    from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet
+    from graspldm_tpu_torch.models.stacked_denoiser import compute_input_emb, pack_math_weights
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    dims = _denoiser_dims(ddm)
+    math_w = pack_math_weights(ddm, dims)
+    z_pc = torch.randn((BG, 3, dims.cond_dim), generator=gen, device=dev)
+    x_unit = torch.randn((BG, dims.seq_len), generator=gen, device=dev)
+    noise = torch.randn((EDM_STEPS["churn"], BG, dims.seq_len), generator=gen, device=dev)
+    short = dict.fromkeys(EDM_STEPS, EDM_SHORT_STEPS)
+    refs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        w = PackedNet(math_w, dims, dt, dev)
+        input_emb = compute_input_emb(w.aux, z_pc)
+        for steps, mode in ((EDM_STEPS, "full"), (short, "short")):
+            log(f"[kernels] EDM fpc {tag_of(dt)}, BG={BG}, {mode}")
+            hold(run, w, sampler_runs(w, ed, input_emb, x_unit, noise, steps), steps, "fpc", BG,
+                 mode, refs, BG, EDM_STEPS)
+
+
+def ppc_kernel_phase(run: Run, ddm, ed, sched, dev) -> None:
+    """All three sampler kernels at the ppc denoiser's L = 16 against their
+    plain versions: over a ragged BG for a few steps, at BG = PPC_BG with
+    their full step counts (timed there), and the EDM kernels' rounding
+    points over their first steps."""
+    from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet
+    from graspldm_tpu_torch.models.stacked_denoiser import compute_input_emb, pack_math_weights
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    dims = _denoiser_dims(ddm)
+    L = dims.seq_len
+    math_w = pack_math_weights(ddm, dims)
+    z_pc = torch.randn((PPC_BG, 3, dims.cond_dim), generator=gen, device=dev)
+    x_unit = torch.randn((PPC_BG, L), generator=gen, device=dev)
+    noise = torch.randn((max(PPC_STEPS.values()), PPC_BG, L), generator=gen, device=dev)
+    checks = ((PPC_BG_CHECK, dict.fromkeys(PPC_STEPS, PPC_STEPS_CHECK), "ragged"),
+              (PPC_BG, PPC_STEPS, "full"),
+              (PPC_BG, dict.fromkeys(EDM_STEPS, EDM_SHORT_STEPS), "short"))
+    refs = {}
+    for dt in (torch.float32, torch.bfloat16):
+        w = PackedNet(math_w, dims, dt, dev)
+        for bg, steps, mode in checks:
+            log(f"[kernels] ppc {tag_of(dt)}, L={L}, BG={bg}, {mode}")
+            input_emb = compute_input_emb(w.aux, z_pc[:bg])
+            runs = sampler_runs(w, ed, input_emb, x_unit[:bg].contiguous(),
+                                noise[:, :bg].contiguous(), steps, sched)
+            hold(run, w, runs, steps, "ppc", bg, mode, refs, PPC_BG, PPC_STEPS)
+
+
+# ---------------------------------------------------------------------------
+# main paths
+# ---------------------------------------------------------------------------
 
 
 def check_grasps(out: dict, b: int, g: int) -> None:
@@ -215,27 +558,9 @@ def check_grasps(out: dict, b: int, g: int) -> None:
         raise AssertionError("rotation blocks are not orthonormal")
 
 
-def counts() -> dict:
-    from graspldm_tpu_torch.models.cuda_sampler import SAMPLER_KERNEL
-    from graspldm_tpu_torch.models.stacked_cuda import FINAL_KERNEL, STAGE_KERNEL
-
-    return {c.name: c.launches for c in (STAGE_KERNEL, FINAL_KERNEL, SAMPLER_KERNEL)}
-
-
-def reset_counts() -> None:
-    from graspldm_tpu_torch.models.cuda_sampler import SAMPLER_KERNEL
-    from graspldm_tpu_torch.models.stacked_cuda import FINAL_KERNEL, STAGE_KERNEL
-
-    for c in (STAGE_KERNEL, FINAL_KERNEL, SAMPLER_KERNEL):
-        c.launches = 0
-
-
-def expect_counts(phase: str, stage: int, final: int, sampler: int) -> None:
-    c = counts()
-    log(f"  launches so far: {c}")
-    want = {"stage_kernel": stage, "final_kernel": final, "ddim_sampler_kernel": sampler}
-    if c != want:
-        raise AssertionError(f"{phase}: launch counts {c}, expected {want}")
+def per_call(sampler_kernel: str) -> dict:
+    """One generation call: 4 decoder stages, the final block, one sampler."""
+    return {"stage_kernel": 4, "final_kernel": 1, sampler_kernel: 1}
 
 
 def clouds(rng: np.random.Generator, b: int, n: int) -> np.ndarray:
@@ -247,40 +572,73 @@ def clouds(rng: np.random.Generator, b: int, n: int) -> np.ndarray:
     return (pts + rng.uniform(-0.3, 0.3, size=(b, 1, 3))).astype(np.float32)
 
 
-def generation_phase(vae, ddm, diffusion, dev) -> None:
-    from graspldm_tpu_torch.inference.pipeline import ldm_generate, vae_generate
+def _normalized(dev, b: int, seed: int):
     from graspldm_tpu_torch.utils.normalization import normalize_pc_and_grasps
 
-    rng = np.random.default_rng(SEED)
-    pc = torch.from_numpy(clouds(rng, B, N_POINTS)).to(dev)
-    pc_n, _, meta = normalize_pc_and_grasps(pc, torch.zeros((B, 1, 6), device=dev))
-    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pc = torch.from_numpy(clouds(np.random.default_rng(seed), b, N_POINTS)).to(dev)
+    pc_n, _, meta = normalize_pc_and_grasps(pc, torch.zeros((b, 1, 6), device=dev))
+    return pc_n, meta
 
+
+def timed_ldm(run: Run, label: str, models, pc_n, meta, g: int, gen, steps: int, sampler: str,
+              kernel: str, config: str = "fpc", calls: int = 2) -> None:
+    from graspldm_tpu_torch.inference.pipeline import ldm_generate
+
+    vae, ddm, diffusion = models
+    for i in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = ldm_generate(vae, ddm, diffusion, pc_n, g, gen, num_inference_steps=steps,
+                           sampler=sampler, meta=meta)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        log(f"  {label} call {i + 1}: wall {wall:.3f} s"
+            + (" (first call: packing and set-up included)" if i == 0 else
+               " (warm; packing included)"))
+        check_grasps(out, pc_n.shape[0], g)
+        run.expect_more(label, config, **per_call(kernel))
+
+
+def generation_phase(run: Run, fpc, ppc, dev) -> None:
+    from graspldm_tpu_torch.inference.pipeline import vae_generate
+
+    vae, ddm, diffusion = fpc
+    pc_n, meta = _normalized(dev, B, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     log(f"[ldm_generate] B={B} x N={N_POINTS}, G={G}, {STEPS} DDIM steps, bf16 kernels")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = ldm_generate(vae, ddm, diffusion, pc_n, G, gen, num_inference_steps=STEPS,
-                       sampler="ddim", meta=meta)
-    torch.cuda.synchronize()
-    log(f"  wall {time.perf_counter() - t0:.3f} s (first call: packing included)")
-    check_grasps(out, B, G)
-    expect_counts("ldm_generate", 4, 1, 1)
-    t0 = time.perf_counter()
-    ldm_generate(vae, ddm, diffusion, pc_n, G, gen, num_inference_steps=STEPS,
-                 sampler="ddim", meta=meta)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    timed_ldm(run, "ldm_generate ddim", fpc, pc_n, meta, G, gen, STEPS, "ddim",
+              "ddim_sampler_kernel")
     with torch.no_grad():
         enc_ms = cuda_ms(lambda: vae.encode_pc(pc_n), 5)
-    log(f"  second call: wall {wall:.3f} s (packing included); encode_pc alone "
-        f"{enc_ms:.3f} ms (CUDA events)")
-    expect_counts("ldm_generate x2", 8, 2, 2)
+    log(f"  encode_pc alone {enc_ms:.3f} ms (CUDA events)")
 
     log(f"[vae_generate] B={B}, G={G}")
     out = vae_generate(vae, pc_n, G, gen, meta=meta)
     torch.cuda.synchronize()
     check_grasps(out, B, G)
-    expect_counts("vae_generate", 12, 3, 2)
+    run.expect_more("vae_generate", "fpc", stage_kernel=4, final_kernel=1)
+
+    pc1, meta1 = _normalized(dev, 1, SEED + 7)
+    log(f"[ldm_generate] ppc (z_pc [3, 256], latent 16), B=1 x N={N_POINTS}, G={G}, "
+        f"{STEPS} DDIM steps, bf16 kernels")
+    timed_ldm(run, "ldm_generate ppc ddim", ppc, pc1, meta1, G, gen, STEPS, "ddim",
+              "ddim_sampler_kernel", "ppc", calls=1)
+
+
+def edm_generation_phase(run: Run, fpc, ppc, dev) -> None:
+    pc_n, meta = _normalized(dev, B, SEED)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    for sampler, steps in EDM_STEPS.items():
+        log(f"[ldm_generate EDM] fpc, B={B} x N={N_POINTS}, G={G}, {sampler} x {steps} steps, "
+            "bf16 kernels")
+        timed_ldm(run, f"ldm_generate {sampler}", fpc, pc_n, meta, G, gen, steps, sampler,
+                  f"{sampler}_sampler_kernel")
+    pc1, meta1 = _normalized(dev, 1, SEED + 7)
+    for sampler, steps in EDM_STEPS.items():
+        log(f"[ldm_generate EDM] ppc (z_pc [3, 256], latent 16), B=1 x N={N_POINTS}, G={G}, "
+            f"{sampler} x {steps} steps, bf16 kernels")
+        timed_ldm(run, f"ldm_generate ppc {sampler}", ppc, pc1, meta1, G, gen, steps, sampler,
+                  f"{sampler}_sampler_kernel", "ppc", calls=1)
 
 
 def _post(url: str, body: dict, results: list, i: int) -> None:
@@ -293,14 +651,14 @@ def _post(url: str, body: dict, results: list, i: int) -> None:
         results[i] = (None, repr(e))
 
 
-def server_phase(vae, ddm, diffusion, dev) -> None:
+def server_phase(run: Run, models, dev, steps: int, sampler: str, kernel: str) -> None:
     from graspldm_tpu_torch.serving import (
         DynamicBatcher, GraspServer, make_batch_generate_from_parts,
     )
 
-    log(f"[server] GraspServer, LDM mode, up to {G} grasps, {STEPS} DDIM steps")
-    fn = make_batch_generate_from_parts(vae, ddm, diffusion, device=dev, num_grasps=G,
-                                        num_inference_steps=STEPS, sampler="ddim", seed=SEED)
+    log(f"[server] GraspServer, LDM mode, up to {G} grasps, {sampler} x {steps} steps")
+    fn = make_batch_generate_from_parts(*models, device=dev, num_grasps=G,
+                                        num_inference_steps=steps, sampler=sampler, seed=SEED)
     batcher = DynamicBatcher(fn, num_points=N_POINTS, max_batch=4, max_wait_ms=50.0)
     server = GraspServer(batcher, host="127.0.0.1", port=0, info={"num_grasps": G})
     server.start_background()
@@ -328,84 +686,128 @@ def server_phase(vae, ddm, diffusion, dev) -> None:
             if body["num_grasps"] != g:
                 raise AssertionError("num_grasps echoed wrongly")
             check_grasps({k: v[None] for k, v in out.items()}, 1, g)
-        log(f"  batcher stats: {json.dumps(batcher.stats())}")
+        stats = batcher.stats()
+        log(f"  batcher stats: {json.dumps(stats)}")
     finally:
         server.shutdown()
+    if stats["batches"] < 1:
+        raise AssertionError("the server ran no batch")
+    run.expect_more("server", "fpc",
+                    **{k: stats["batches"] * v for k, v in per_call(kernel).items()})
 
 
-def reference_phase(dev) -> None:
+def reference_phase(run: Run, dev) -> None:
     """Small float32 generation on the card against the CPU's plain path."""
     from graspldm_tpu_torch.inference.pipeline import ldm_generate
     from graspldm_tpu_torch.utils.normalization import normalize_pc_and_grasps
 
     b, g = 1, 16
-    log(f"[reference] fp32 ldm_generate B={b}, G={g}, {STEPS} DDIM steps: card vs CPU")
-    vae, ddm, diffusion = build_models("float32")
     rng = np.random.default_rng(SEED + 3)
     pc = torch.from_numpy(clouds(rng, b, N_POINTS))
     pc_n, _, meta = normalize_pc_and_grasps(pc, torch.zeros((b, 1, 6)))
-    x_T = torch.randn((b * g, 4), generator=torch.Generator().manual_seed(SEED + 4))
-    want = ldm_generate(vae, ddm, diffusion, pc_n, g, num_inference_steps=STEPS,
-                        meta=meta, x_T=x_T)
-    vae_d, ddm_d = copy.deepcopy(vae).to(dev), copy.deepcopy(ddm).to(dev)
     meta_d = type(meta)(*(m.to(dev) for m in meta))
-    got = ldm_generate(vae_d, ddm_d, diffusion, pc_n.to(dev), g, num_inference_steps=STEPS,
-                       meta=meta_d, x_T=x_T.to(dev))
-    for k in ("grasps", "grasp_tmrp", "confidence"):
-        err = (got[k].cpu() - want[k]).abs().max().item()
-        log(f"  {k}: max_abs_err {err:.3e} tol {TOL_E2E:.0e}")
-        if not err <= TOL_E2E:
-            raise AssertionError(f"{k}: card and CPU disagree")
+    cpu_gen = torch.Generator().manual_seed(SEED + 4)
+    x_unit = torch.randn((b * g, 4), generator=cpu_gen)
+    churn_noise = torch.randn((EDM_STEPS["churn"], b * g, 4), generator=cpu_gen)
+    runs = [("ddim", False, STEPS, x_unit, None)] + [
+        (s, True, n, 80.0 * x_unit, churn_noise if s == "churn" else None)
+        for s, n in EDM_STEPS.items()
+    ]
+    for sampler, edm, steps, x_T, noise in runs:
+        log(f"[reference] fp32 ldm_generate B={b}, G={g}, {sampler} x {steps} steps: "
+            "card vs CPU")
+        vae, ddm, diffusion = build_models("float32", "cpu", elucidated=edm)
+        kw = dict(num_inference_steps=steps, sampler=sampler)
+        want = ldm_generate(vae, ddm, diffusion, pc_n, g, meta=meta, x_T=x_T, noise=noise, **kw)
+        vae_d, ddm_d = copy.deepcopy(vae).to(dev), copy.deepcopy(ddm).to(dev)
+        got = ldm_generate(vae_d, ddm_d, diffusion, pc_n.to(dev), g, meta=meta_d,
+                           x_T=x_T.to(dev), noise=None if noise is None else noise.to(dev), **kw)
+        for k in ("grasps", "grasp_tmrp", "confidence"):
+            err = (got[k].cpu() - want[k]).abs().max().item()
+            log(f"  {k}: max_abs_err {err:.3e} tol {TOL_E2E:.0e}")
+            if not err <= TOL_E2E:
+                raise AssertionError(f"{sampler} {k}: card and CPU disagree")
+
+
+def launches_of(run: Run, name: str, config: str) -> dict:
+    """Launches of kernel ``name`` by the calls of ``config``, per main path."""
+    return {p: run.launches.get((p, name, config), 0) for p in run.paths}
+
+
+def kernels_line(run: Run) -> dict:
+    entries = []
+    for (name, config), r in run.records.items():
+        bf, fp = r.get("bf16", {}), r.get("fp32", {})
+        by_path = launches_of(run, name, config)
+        entries.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": sum(by_path.values()), "max_abs_err": bf.get("err"),
+            "ms": bf.get("ms"), "plain_ms": bf.get("plain_ms"), "bound_ms": bf.get("bound_ms"),
+            "bound_by": bf.get("bound_by"), "library_ms": None,
+            "dtype": "bfloat16", "config": config, "what": r["what"], "L": r["L"],
+            "BG": r["BG"], "steps": r["steps"], "launches_by_path": by_path,
+            "err_checked_at": bf.get("err_checked_at", [
+                dict(BG=r["BG"], steps=r["steps"], max_abs_err=bf.get("err"))]),
+            "max_abs_err_fp32": fp.get("err"), "ms_fp32": fp.get("ms"),
+            "plain_ms_fp32": fp.get("plain_ms"), "bound_ms_fp32": fp.get("bound_ms"),
+            "bound_by_fp32": fp.get("bound_by"),
+            **{k: v for k, v in bf.items() if k.startswith("bf16_vs_fp32_plain")},
+        })
+    return {"kernels": entries}
 
 
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this run needs an NVIDIA GPU")
+    t_start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    log(card_line())
+    card = card_line()
+    log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
     from graspldm_tpu_torch.cuda_build import load_library
+    from graspldm_tpu_torch.diffusion import DiffusionSchedule
 
     t0 = time.perf_counter()
     load_library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s")
 
-    vae, ddm, diffusion = build_models("bfloat16")
-    vae, ddm = vae.to(dev), ddm.to(dev)
-    kres = kernel_phase(vae, ddm, diffusion, dev)
+    run = Run()
+    ddim_models = build_models("bfloat16", dev)
+    ppc_ddim = build_models("bfloat16", dev, **PPC)
+    fpc_edm = build_models("bfloat16", dev, elucidated=True)
+    ppc_edm = build_models("bfloat16", dev, elucidated=True, **PPC)
+    run.phase("kernels fpc", kernel_phase, *ddim_models, dev)
+    run.phase("kernels EDM fpc", edm_kernel_phase, fpc_edm[1], fpc_edm[2], dev)
+    ppc_sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
+    run.phase("kernels ppc", ppc_kernel_phase, ppc_edm[1], ppc_edm[2], ppc_sched, dev)
 
-    reset_counts()
-    generation_phase(vae, ddm, diffusion, dev)
-    server_phase(vae, ddm, diffusion, dev)
-    launches = counts()
-    log(f"[main path] launches: {launches}")
-    if launches["final_kernel"] < 4 or launches["ddim_sampler_kernel"] < 3 \
-            or launches["stage_kernel"] != 4 * launches["final_kernel"]:
-        raise AssertionError(f"server requests did not run through the kernels: {launches}")
+    run.reset_counts("ddim")
+    run.phase("generation ddim", generation_phase, ddim_models, ppc_ddim, dev)
+    run.phase("server ddim", server_phase, ddim_models, dev, STEPS, "ddim",
+              "ddim_sampler_kernel")
+    log(f"[main path ddim] launches: {counts()}")
 
-    reference_phase(dev)
+    run.reset_counts("edm")
+    run.phase("generation EDM", edm_generation_phase, fpc_edm, ppc_edm, dev)
+    run.phase("server EDM", server_phase, fpc_edm, dev, EDM_STEPS["dpmpp"], "dpmpp",
+              "dpmpp_sampler_kernel")
+    log(f"[main path EDM] launches: {counts()}")
+    for name, config in run.records:
+        n = launches_of(run, name, config)
+        log(f"  {name} at {config}: {n}")
+        if sum(n.values()) < 1:
+            run.failures.append(f"{name} at {config} was not launched on any main path")
 
-    replaces = {
-        "stage_kernel": "graspldm_tpu/models/stacked_pallas.py:900",
-        "final_kernel": "graspldm_tpu/models/stacked_pallas.py:914",
-        "ddim_sampler_kernel": "graspldm_tpu/models/pallas_sampler.py:482",
-    }
-    record = {"kernels": [
-        {
-            "name": name, "route": "cuda", "source": "graspldm_tpu_torch/csrc/kernels.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": kres[name]["bf16"]["err"],
-            "ms": kres[name]["bf16"]["ms"], "plain_ms": kres[name]["bf16"]["plain_ms"],
-            "dtype": "bfloat16", "BG": BG,
-            "max_abs_err_fp32": kres[name]["fp32"]["err"],
-            "ms_fp32": kres[name]["fp32"]["ms"], "plain_ms_fp32": kres[name]["fp32"]["plain_ms"],
-        }
-        for name in replaces
-    ]}
-    log(json.dumps(record))
+    run.phase("reference", reference_phase, dev)
+
+    log(f"[done] wall {time.perf_counter() - t_start:.1f} s; {card}")
+    if run.failures:
+        log("FAILED:\n  " + "\n  ".join(run.failures))
+        return 1
+    log(json.dumps(kernels_line(run)))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

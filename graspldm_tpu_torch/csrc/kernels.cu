@@ -4,6 +4,9 @@
 //   final_kernel         replaces graspldm_tpu/models/stacked_pallas.py:_final_kernel
 //   ddim_sampler_kernel  replaces graspldm_tpu/models/pallas_sampler.py:_mega_kernel
 //
+// (The EDM sampler kernels are in dpmpp_sampler.cu and churn_sampler.cu;
+// each source builds into its own library, all in parallel.)
+//
 // What bounds them on the H100: the network is ~0.9 M parameters (3.6 MB
 // fp32) applied to tiny per-row activations (<= 4096 values at L=16), so
 // the work is many small dependent products whose weights do not fit in
@@ -16,26 +19,11 @@
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
 // interface, loaded with ctypes; see graspldm_tpu_torch/cuda_build.py).
-#include "resnet1d_blocks.cuh"
+#include "sampler_body.cuh"
 
 using namespace gl;
 
 namespace {
-
-constexpr size_t kSmemBudget = 225 * 1024;  // of the 227 KB a block may use
-constexpr int kMaxRows = 16;
-
-template <typename T>
-size_t row_bytes(const Plan& p) {
-  return (size_t)p.t_elems() * sizeof(T) + (size_t)p.f_elems() * sizeof(float);
-}
-
-template <typename T>
-int rows_per_block(const Plan& p) {
-  const size_t per = row_bytes<T>(p);
-  int r = (int)(kSmemBudget / per);
-  return r > kMaxRows ? kMaxRows : r;
-}
 
 // ---------------------------------------------------------------------------
 // kernels
@@ -44,8 +32,8 @@ int rows_per_block(const Plan& p) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 stage_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restrict__ Wf,
-             const long long* __restrict__ rec, T* __restrict__ out, int BG, int R, int L,
-             int C, int Cout, int E, int Ce, int G) {
+             const long long* __restrict__ rec, T* __restrict__ out, int BG, int L, int C,
+             int Cout, int E, int Ce, int G, int R) {
   extern __shared__ __align__(16) char smem[];
   const Bufs<T> b = carve<T>(smem, stage_plan(L, C, Cout, E, G), R);
   const int row0 = blockIdx.x * R;
@@ -68,8 +56,8 @@ stage_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 final_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restrict__ Wf,
-             const long long* __restrict__ rec, T* __restrict__ out, int BG, int R, int L,
-             int C, int E, int Ce, int G) {
+             const long long* __restrict__ rec, T* __restrict__ out, int BG, int L, int C,
+             int E, int Ce, int G, int R) {
   extern __shared__ __align__(16) char smem[];
   const Bufs<T> b = carve<T>(smem, final_plan(L, C, E, G), R);
   const int row0 = blockIdx.x * R;
@@ -88,7 +76,7 @@ final_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
 
 // Whole DDIM / DDPM reverse diffusion for R rows in one launch: the carry x
 // (fp32), the conditioning embedding and every activation stay in shared
-// memory across all S steps. Per step s:
+// memory across all S steps. Per step s (net_step in sampler_body.cuh):
 //   emb = silu(embin + trows[s]) (rounded to T), eps = net(x),
 //   x0 = clip(c0*x - c1*eps);  ddim: x = c2*x + c3*x0
 //                              ddpm: x = c2*x0 + c3*x + c4*noise[s]
@@ -98,57 +86,16 @@ ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embi
                     const float* __restrict__ trows, const float* __restrict__ coefs,
                     const float* __restrict__ noise, const T* __restrict__ Wf,
                     const long long* __restrict__ net, float* __restrict__ out, int BG, int S,
-                    int R, int L, int E, int Ce, int G, int cmax, int clip, float clip_range) {
+                    int L, int E, int Ce, int G, int cmax, int clip, float clip_range, int R) {
   extern __shared__ __align__(16) char smem[];
-  const Bufs<T> b = carve<T>(smem, sampler_plan(L, cmax, E, Ce, G), R);
+  const Bufs<T> b = carve<T>(smem, sampler_plan(L, cmax, E, Ce, G, 1), R);
   const int row0 = blockIdx.x * R;
   const int CeE = Ce * E;
-  const int n_st = (int)net[N_NSTAGES], dim0 = (int)net[N_DIM0];
-  const T* init_w = Wf + net[N_INIT_W];  // [7, dim0]
-  const T* init_b = Wf + net[N_INIT_B];
-  for (int idx = threadIdx.x; idx < R * L; idx += blockDim.x)
-    b.XC[idx] = row0 + idx / L < BG ? xT[(size_t)row0 * L + idx] : 0.f;
-  for (int idx = threadIdx.x; idx < R * CeE; idx += blockDim.x)
-    b.EMBIN[idx] = row0 + idx / CeE < BG ? embin[(size_t)row0 * CeE + idx] : 0.f;
+  load_sampler_rows(b, xT, embin, row0, R, BG, L, CeE);
   __syncthreads();
 
   for (int s = 0; s < S; ++s) {
-    const float* trow = trows + (size_t)s * CeE;
-    for (int idx = threadIdx.x; idx < R * E; idx += blockDim.x) {
-      const int r = idx / E, k = idx % E;
-      float acc = 0.f;
-      for (int c = 0; c < Ce; ++c)
-        acc += rnd<T>(silu(b.EMBIN[r * CeE + c * E + k] + trow[c * E + k]));
-      b.ESUM[idx] = acc;
-    }
-    // init conv: 1 channel -> dim0 channels, k=7, pad 3, on x rounded to T
-    T* X = b.X;
-    T* OUT = b.OUT;
-    for (int idx = threadIdx.x; idx < R * L * dim0; idx += blockDim.x) {
-      const int c = idx % dim0, m = idx / dim0, r = m / L, l = m % L;
-      float acc = 0.f;
-      for (int t = 0; t < 7; ++t) {
-        const int sl = l + t - 3;
-        if (sl >= 0 && sl < L) acc = fmaf(rnd<T>(b.XC[r * L + sl]), ldw(init_w + t * dim0 + c), acc);
-      }
-      X[idx] = from_f<T>(acc + ldw(init_b + c));
-    }
-    __syncthreads();
-    for (int st = 0; st < n_st; ++st) {
-      const long long* rec = net + NET_HDR + st * REC_SIZE;
-      const int C = (int)rec[R_C], Cout = (int)rec[R_COUT];
-      resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES1);
-      resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES2);
-      attention(b, X, R, L, C, Wf, rec);
-      proj(X, OUT, R, L, C, Cout, Wf, rec);
-      T* tmp = X; X = OUT; OUT = tmp;
-    }
-    const long long* fin = net + NET_HDR + n_st * REC_SIZE;
-    const int Cf = (int)fin[R_C];
-    resblock(b, X, R, L, Cf, E, Ce, G, Wf, fin + R_RES1);
-    float* eps = b.SS;  // free after the final resblock
-    head(X, R * L, Cf, Wf, fin, [&](int m, float v) { eps[m] = v; });
-    __syncthreads();
+    const float* eps = net_step(b, b.XC, 1.0f, trows + (size_t)s * CeE, R, L, E, Ce, G, Wf, net);
     const float* c = coefs + (size_t)s * 8;
     for (int idx = threadIdx.x; idx < R * L; idx += blockDim.x) {
       const float xt = b.XC[idx];
@@ -167,56 +114,28 @@ ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embi
     if (row0 + idx / L < BG) out[(size_t)row0 * L + idx] = b.XC[idx];
 }
 
-// ---------------------------------------------------------------------------
-// host launchers
-// ---------------------------------------------------------------------------
-
 template <typename T>
 int launch_stage(const void* x, const void* emb, const void* w, const long long* rec, void* out,
                  int BG, int L, int C, int Cout, int E, int Ce, int G, cudaStream_t st) {
-  const Plan p = stage_plan(L, C, Cout, E, G);
-  const int R = rows_per_block<T>(p);
-  if (R < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = R * row_bytes<T>(p);
-  cudaError_t e = cudaFuncSetAttribute(stage_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  stage_kernel<T><<<(BG + R - 1) / R, kThreads, bytes, st>>>(
-      (const T*)x, (const T*)emb, (const T*)w, rec, (T*)out, BG, R, L, C, Cout, E, Ce, G);
-  return (int)cudaGetLastError();
+  return launch_rows<T>(stage_kernel<T>, stage_plan(L, C, Cout, E, G), BG, st, (const T*)x,
+                        (const T*)emb, (const T*)w, rec, (T*)out, BG, L, C, Cout, E, Ce, G);
 }
 
 template <typename T>
 int launch_final(const void* x, const void* emb, const void* w, const long long* rec, void* out,
                  int BG, int L, int C, int E, int Ce, int G, cudaStream_t st) {
-  const Plan p = final_plan(L, C, E, G);
-  const int R = rows_per_block<T>(p);
-  if (R < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = R * row_bytes<T>(p);
-  cudaError_t e = cudaFuncSetAttribute(final_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  final_kernel<T><<<(BG + R - 1) / R, kThreads, bytes, st>>>(
-      (const T*)x, (const T*)emb, (const T*)w, rec, (T*)out, BG, R, L, C, E, Ce, G);
-  return (int)cudaGetLastError();
+  return launch_rows<T>(final_kernel<T>, final_plan(L, C, E, G), BG, st, (const T*)x,
+                        (const T*)emb, (const T*)w, rec, (T*)out, BG, L, C, E, Ce, G);
 }
 
 template <typename T>
-int launch_sampler(const float* xT, const float* embin, const float* trows, const float* coefs,
-                   const float* noise, const void* w, const long long* net, float* out, int BG,
-                   int S, int L, int E, int Ce, int G, int cmax, int clip, float clip_range,
-                   cudaStream_t st) {
-  const Plan p = sampler_plan(L, cmax, E, Ce, G);
-  const int R = rows_per_block<T>(p);
-  if (R < 1) return (int)cudaErrorInvalidValue;
-  const size_t bytes = R * row_bytes<T>(p);
-  cudaError_t e = cudaFuncSetAttribute(ddim_sampler_kernel<T>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  ddim_sampler_kernel<T><<<(BG + R - 1) / R, kThreads, bytes, st>>>(
-      xT, embin, trows, coefs, noise, (const T*)w, net, out, BG, S, R, L, E, Ce, G, cmax, clip,
-      clip_range);
-  return (int)cudaGetLastError();
+int launch_ddim(const float* xT, const float* embin, const float* trows, const float* coefs,
+                const float* noise, const void* w, const long long* net, float* out, int BG,
+                int S, int L, int E, int Ce, int G, int cmax, int clip, float clip_range,
+                cudaStream_t st) {
+  return launch_rows<T>(ddim_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 1), BG, st, xT,
+                        embin, trows, coefs, noise, (const T*)w, net, out, BG, S, L, E, Ce, G,
+                        cmax, clip, clip_range);
 }
 
 }  // namespace
@@ -249,10 +168,10 @@ int gl_ddim_sample(int dtype, const float* xT, const float* embin, const float* 
                    float clip_range, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_sampler<float>(xT, embin, trows, coefs, noise, w, net, out, BG, S, L, E, Ce,
-                                 G, cmax, clip, clip_range, st);
-  return launch_sampler<__nv_bfloat16>(xT, embin, trows, coefs, noise, w, net, out, BG, S, L,
-                                       E, Ce, G, cmax, clip, clip_range, st);
+    return launch_ddim<float>(xT, embin, trows, coefs, noise, w, net, out, BG, S, L, E, Ce, G,
+                              cmax, clip, clip_range, st);
+  return launch_ddim<__nv_bfloat16>(xT, embin, trows, coefs, noise, w, net, out, BG, S, L, E,
+                                    Ce, G, cmax, clip, clip_range, st);
 }
 
 }  // extern "C"

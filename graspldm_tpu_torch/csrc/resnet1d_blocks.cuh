@@ -117,11 +117,13 @@ __host__ __device__ inline Plan final_plan(int L, int C, int E, int G) {
   p.embin = 0; p.xc = 0;
   return p;
 }
-// whole network for the sampler: buffers sized for the widest stage
-__host__ __device__ inline Plan sampler_plan(int L, int cmax, int E, int Ce, int G) {
+// whole network for the sampler: buffers sized for the widest stage, plus
+// `carry` fp32 vectors of L per row (x, and what the sampler keeps beside
+// it); carry vector k of the block starts at XC + k*R*L
+__host__ __device__ inline Plan sampler_plan(int L, int cmax, int E, int Ce, int G, int carry) {
   Plan p = stage_plan(L, cmax, cmax, E, G);
   p.ss = up8(imax(2 * cmax, L));
-  p.embin = up8(Ce * E); p.xc = up8(L);
+  p.embin = up8(Ce * E); p.xc = carry * up8(L);
   return p;
 }
 

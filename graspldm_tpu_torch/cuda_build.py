@@ -1,10 +1,12 @@
 """Build and load the Hopper kernels (``csrc/``) at first use.
 
-``nvcc`` compiles ``csrc/kernels.cu`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes`` (no PyTorch headers, so the
-build takes seconds). The library lands in ``graspldm_tpu_torch/build/``
-(git-ignored), named by a hash of the sources, so an edited source is
-rebuilt and an unchanged one is reused. Nothing here runs at import time.
+``nvcc`` compiles each kernel source in ``csrc/`` for ``sm_90a`` into a
+shared library of its own with a plain C interface, loaded with ``ctypes``
+(no PyTorch headers, so a build takes seconds). The sources build in
+parallel, one ``nvcc`` each, all started together. The libraries land in
+``graspldm_tpu_torch/build/`` (git-ignored), each named by a hash of its
+source, the shared headers and the flags, so an edited source is rebuilt
+and an unchanged one is reused. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -16,13 +18,14 @@ import os
 import shutil
 import subprocess
 import tempfile
+import types
 from pathlib import Path
 
 __all__ = ["load_library", "nvcc_path", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-_SOURCES = ("kernels.cu", "resnet1d_blocks.cuh")
+_HEADERS = ("resnet1d_blocks.cuh", "sampler_body.cuh")
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -30,15 +33,30 @@ _FLAGS = [
 ]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-_SIGNATURES = {
-    # dtype, x, emb, w, rec, out, BG, L, C, Cout, E, Ce, G, stream
-    "gl_stage_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, x, emb, w, rec, out, BG, L, C, E, Ce, G, stream
-    "gl_final_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # dtype, xT, embin, trows, coefs, noise, w, net, out, BG, S, L, E, Ce, G,
-    # cmax, clip, clip_range, stream
-    "gl_ddim_sample": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                       _I, _I, ctypes.c_float, _P],
+# source -> {C entry: argtypes}
+_SOURCES = {
+    "kernels.cu": {
+        # dtype, x, emb, w, rec, out, BG, L, C, Cout, E, Ce, G, stream
+        "gl_stage_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, x, emb, w, rec, out, BG, L, C, E, Ce, G, stream
+        "gl_final_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, xT, embin, trows, coefs, noise, w, net, out, BG, S, L, E, Ce, G,
+        # cmax, clip, clip_range, stream
+        "gl_ddim_sample": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _I, ctypes.c_float, _P],
+    },
+    "dpmpp_sampler.cu": {
+        # dtype, xT, embin, trows, coefs, w, net, out, BG, S, L, E, Ce, G, cmax,
+        # clamp, stream
+        "gl_dpmpp_sample": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                            _I, _P],
+    },
+    "churn_sampler.cu": {
+        # dtype, xT, embin, trowsA, trowsB, coefA, coefB, noise, w, net, out, BG, S,
+        # L, E, Ce, G, cmax, clamp, stream
+        "gl_churn_sample": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                            _I, _I, _I, _I, _P],
+    },
 }
 
 
@@ -52,32 +70,52 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def _digest() -> str:
+def _digest(source: str) -> str:
     h = hashlib.sha256()
-    for name in _SOURCES:
+    for name in (source, *_HEADERS):
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(_FLAGS).encode())
     return h.hexdigest()[:16]
 
 
+def _lib_path(source: str) -> Path:
+    return BUILD_DIR / f"lib{Path(source).stem}_{_digest(source)}.so"
+
+
 @functools.lru_cache(maxsize=None)
-def load_library() -> ctypes.CDLL:
-    """Compile (if needed) and load the kernel library; raises on failure."""
-    so = BUILD_DIR / f"libgraspldm_kernels_{_digest()}.so"
-    if not so.exists():
+def load_library() -> types.SimpleNamespace:
+    """Compile (if needed) and load every kernel library; raises on failure.
+
+    Returns a namespace of the C entries of all of them (``gl_*``)."""
+    todo = [src for src in _SOURCES if not _lib_path(src).exists()]
+    if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [nvcc_path(), *_FLAGS, "-o", tmp, str(CSRC / "kernels.cu")]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / "nvcc.log").write_text(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+        nvcc = nvcc_path()
+        jobs = []
+        for src in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *_FLAGS, "-o", tmp, str(CSRC / src)]
+            jobs.append((src, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        errors, log = [], []
+        for src, tmp, proc in jobs:
+            out, err = proc.communicate()
+            log.append(f"== {src} (rc {proc.returncode})\n{out}{err}")
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                errors.append(f"nvcc failed on {src} ({proc.returncode}):\n{err[-4000:]}")
+            else:
+                os.replace(tmp, _lib_path(src))
+        (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
+        if errors:
+            raise RuntimeError("\n".join(errors))
+    fns = {}
+    for src, entries in _SOURCES.items():
+        lib = ctypes.CDLL(str(_lib_path(src)))
+        for name, argtypes in entries.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+            fns[name] = fn
+    return types.SimpleNamespace(**fns)

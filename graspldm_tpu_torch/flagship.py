@@ -2,8 +2,11 @@
 
 Counterpart of :mod:`graspldm_tpu.flagship`: pc 1024 points -> z_pc [3, 64];
 grasp latent 4; linear betas 5e-5..1e-3, T=1000, fixed_large, epsilon
-prediction. The options this slice of the port does not carry (EDM
-diffusion, class/region conditioning, a separate training dtype) raise.
+prediction; or, with ``elucidated=True``, EDM diffusion sampled in
+``edm_num_sample_steps`` (32) steps by default. The ppc flagship is
+``FlagshipConfig(pc_latent_size=256, grasp_latent_size=16)``. The options
+this port does not carry yet (class/region conditioning, a separate
+training dtype) raise.
 """
 
 from __future__ import annotations
@@ -15,10 +18,10 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .diffusion import DiffusionSchedule, GaussianDiffusion1D
+from .diffusion import DiffusionSchedule, ElucidatedDiffusion, GaussianDiffusion1D
 from .models import GraspCVAE, GraspLatentDDM
 
-__all__ = ["FlagshipConfig", "build_flagship", "resolve_dtype", "init_params_"]
+__all__ = ["FlagshipConfig", "build_flagship", "resolve_device", "resolve_dtype", "init_params_"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,8 +44,22 @@ class FlagshipConfig:
     variance_type: str = "fixed_large"
     # compute dtype of the denoiser and decoder kernels (None = float32)
     denoiser_dtype: object = None
+    # EDM (elucidated) diffusion instead of DDPM/DDIM
     elucidated: bool = False
+    edm_num_sample_steps: int = 32
     conditioning: Optional[str] = None
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point puts its models on: ``device`` if given,
+    else the CUDA card. With no card and no device named this raises; it
+    never falls back to the CPU (pass ``device="cpu"`` for that)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run the plain versions "
+                           "of the kernels on the CPU")
+    return torch.device("cuda")
 
 
 def resolve_dtype(d) -> Optional[torch.dtype]:
@@ -83,13 +100,13 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def build_flagship(cfg: FlagshipConfig = FlagshipConfig(),
-                   generator: Optional[torch.Generator] = None):
-    """Returns ``(vae, ddm, diffusion)`` in eval mode on the CPU; with a
-    ``generator`` their weights are drawn from it (:func:`init_params_`)."""
-    if cfg.elucidated:
-        raise NotImplementedError("EDM (elucidated) diffusion is not ported yet")
+                   generator: Optional[torch.Generator] = None, device=None):
+    """Returns ``(vae, ddm, diffusion)`` in eval mode on ``device`` (default:
+    the CUDA card, see :func:`resolve_device`); with a ``generator`` (a CPU
+    one) their weights are drawn from it (:func:`init_params_`)."""
     if cfg.conditioning is not None:
         raise NotImplementedError("class/region conditioning is not ported yet")
+    device = resolve_device(device)
     dtype = resolve_dtype(cfg.denoiser_dtype)
     vae = GraspCVAE(
         grasp_latent_size=cfg.grasp_latent_size,
@@ -116,13 +133,18 @@ def build_flagship(cfg: FlagshipConfig = FlagshipConfig(),
     if generator is not None:
         init_params_(vae, generator)
         init_params_(ddm, generator)
-    schedule = DiffusionSchedule.create(
-        num_steps=cfg.diffusion_timesteps,
-        beta_schedule=cfg.beta_schedule,
-        beta_start=cfg.beta_start,
-        beta_end=cfg.beta_end,
-    )
-    diffusion = GaussianDiffusion1D(
-        schedule=schedule, n_dims=cfg.grasp_latent_size, variance_type=cfg.variance_type,
-    )
-    return vae.eval(), ddm.eval(), diffusion
+    if cfg.elucidated:
+        diffusion = ElucidatedDiffusion(
+            n_dims=cfg.grasp_latent_size, num_sample_steps=cfg.edm_num_sample_steps,
+        )
+    else:
+        schedule = DiffusionSchedule.create(
+            num_steps=cfg.diffusion_timesteps,
+            beta_schedule=cfg.beta_schedule,
+            beta_start=cfg.beta_start,
+            beta_end=cfg.beta_end,
+        )
+        diffusion = GaussianDiffusion1D(
+            schedule=schedule, n_dims=cfg.grasp_latent_size, variance_type=cfg.variance_type,
+        )
+    return vae.to(device).eval(), ddm.to(device).eval(), diffusion

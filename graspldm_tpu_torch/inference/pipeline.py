@@ -2,24 +2,25 @@
 
 Counterpart of :mod:`graspldm_tpu.inference.pipeline` for the unguided
 paths: encode the cloud once (PVCNN, plain PyTorch), sample ``num_grasps``
-latents (from N(0, I), or by reverse diffusion in one
-``ddim_sampler_kernel`` launch), decode them through the stage kernels,
+latents (from N(0, I), or by reverse diffusion in one sampler-kernel
+launch: ``ddim_sampler_kernel`` for DDIM/DDPM, ``dpmpp_sampler_kernel`` or
+``churn_sampler_kernel`` for EDM), decode them through the stage kernels,
 unnormalize, convert tmrp -> 4x4 transforms and sigmoid the success logit.
 
 The kernels run wherever the tensors live: on a CUDA device the
 hand-written kernels launch, on the CPU their plain PyTorch versions run.
-Guidance, classifier-free guidance, class/region conditioning, EDM
-samplers and trajectory decoding are not ported yet and raise.
+Guidance, classifier-free guidance, class/region conditioning and
+trajectory decoding are not ported yet and raise.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
-from ..diffusion import GaussianDiffusion1D
-from ..models.cuda_sampler import fused_sample
+from ..diffusion import ElucidatedDiffusion, GaussianDiffusion1D
+from ..models.cuda_sampler import fused_sample, fused_sample_churn, fused_sample_dpmpp
 from ..models.fast_decoder import decoder_dims_for, decoder_fast_apply, pack_decoder_weights
 from ..models.stacked_cuda import PackedNet
 from ..models.stacked_denoiser import DenoiserDims, compute_input_emb, pack_math_weights
@@ -101,7 +102,8 @@ def vae_generate(
     meta: Optional[NormalizationMeta] = None, z_h: Optional[torch.Tensor] = None,
     weights: Optional[GenerationWeights] = None,
 ) -> Dict[str, torch.Tensor]:
-    """VAE-mode generation: latents from the N(0, I) prior.
+    """VAE-mode generation: latents from the N(0, I) prior. Runs on the
+    device of ``pc`` and of the models (the caller puts them there).
 
     Args:
         pc: ``[B, N, 3]`` normalized clouds. ``z_h [B*G, latent]`` overrides
@@ -118,7 +120,8 @@ def vae_generate(
 
 @torch.no_grad()
 def ldm_generate(
-    vae, ddm, diffusion: GaussianDiffusion1D, pc: torch.Tensor, num_grasps: int,
+    vae, ddm, diffusion: Union[GaussianDiffusion1D, ElucidatedDiffusion], pc: torch.Tensor,
+    num_grasps: int,
     generator: Optional[torch.Generator] = None, num_inference_steps: int = 100,
     sampler: str = "ddim", meta: Optional[NormalizationMeta] = None,
     x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
@@ -127,10 +130,17 @@ def ldm_generate(
     guidance_fn=None,
 ) -> Dict[str, torch.Tensor]:
     """LDM-mode generation: reverse diffusion in the grasp latent space.
+    Runs on the device of ``pc`` and of the models (the caller puts them
+    there).
 
-    The whole sampler runs in one ``ddim_sampler_kernel`` launch (DDIM or
-    DDPM). ``x_T [B*G, latent]`` and the DDPM ``noise [S, B*G, latent]``
-    default to draws from ``generator``; tests inject JAX's.
+    The whole sampler runs in one kernel launch. With a
+    ``GaussianDiffusion1D``: ``ddim_sampler_kernel`` (``sampler`` "ddim" or
+    "ddpm"). With an ``ElucidatedDiffusion``: ``sampler == "dpmpp"`` runs
+    DPM-Solver++(2M) (``dpmpp_sampler_kernel``), any other value the
+    stochastic churn sampler (``churn_sampler_kernel``), as the JAX
+    package routes them. ``x_T [B*G, latent]`` (EDM: at sigma_max scale)
+    and the DDPM / churn ``noise [S, B*G, latent]`` (unit normals) default
+    to draws from ``generator``; tests inject JAX's.
     """
     unported = {
         "return_trajectory": return_trajectory, "cls_cond": cls_cond is not None,
@@ -141,18 +151,30 @@ def ldm_generate(
         raise NotImplementedError(
             f"not ported yet: {[k for k, v in unported.items() if v]}"
         )
-    if sampler not in ("ddim", "ddpm"):
-        raise NotImplementedError(f"sampler {sampler!r} is not ported yet")
+    edm = isinstance(diffusion, ElucidatedDiffusion)
+    if not edm and sampler not in ("ddim", "ddpm"):
+        raise ValueError(f"sampler {sampler!r} needs an ElucidatedDiffusion; "
+                         "GaussianDiffusion1D takes 'ddim' or 'ddpm'")
     weights = weights or pack_generation_weights(vae, ddm, device=pc.device)
     z_pc = vae.encode_pc(pc)
     z_pc_rep = z_pc.repeat_interleave(num_grasps, dim=0)
     BG = z_pc_rep.shape[0]
     if x_T is None:
         x_T = torch.randn((BG, ddm.latent_in_features), generator=generator, device=pc.device)
+        if edm:
+            x_T = diffusion.sample_schedule(num_inference_steps)[0].item() * x_T
     input_emb = compute_input_emb(weights.denoiser.aux, z_pc_rep)
-    x0 = fused_sample(
-        weights.denoiser, diffusion.schedule, input_emb, x_T,
-        num_inference_steps=num_inference_steps, sampler=sampler,
-        variance_type=diffusion.variance_type, noise=noise, generator=generator,
-    )
+    if edm and sampler == "dpmpp":
+        x0 = fused_sample_dpmpp(weights.denoiser, diffusion, input_emb, x_T,
+                                num_sample_steps=num_inference_steps)
+    elif edm:
+        x0 = fused_sample_churn(weights.denoiser, diffusion, input_emb, x_T,
+                                num_sample_steps=num_inference_steps, noise=noise,
+                                generator=generator)
+    else:
+        x0 = fused_sample(
+            weights.denoiser, diffusion.schedule, input_emb, x_T,
+            num_inference_steps=num_inference_steps, sampler=sampler,
+            variance_type=diffusion.variance_type, noise=noise, generator=generator,
+        )
     return decode_and_postprocess(weights, x0[:, 0, :], z_pc_rep, num_grasps, meta)

@@ -1,19 +1,34 @@
-"""Whole-trajectory DDIM/DDPM sampler kernel.
+"""Whole-trajectory sampler kernels: DDIM/DDPM and the two EDM samplers.
 
 Counterpart of :mod:`graspldm_tpu.models.pallas_sampler`'s whole-scan
-branch. ``ddim_sampler_kernel`` replaces ``pallas_sampler.py:_mega_kernel``:
-one launch runs every reverse-diffusion step for a block of rows, with the
-fp32 carry, the conditioning embedding and all activations resident in
-shared memory. Its step body calls the same device functions as the stage
-kernels (``csrc/resnet1d_blocks.cuh``). Rows need not fill the last block:
-the kernel masks the ragged edge itself (the JAX sampler pads rows to the
+branches. Each kernel runs every step of one sampler for a block of rows in
+one launch, with the fp32 carry, the conditioning embedding and all
+activations resident in shared memory:
+
+* ``ddim_sampler_kernel`` replaces ``pallas_sampler.py:_mega_kernel``
+  (DDIM / DDPM);
+* ``dpmpp_sampler_kernel`` replaces ``pallas_sampler.py:_mega_dpmpp_kernel``
+  (EDM DPM-Solver++(2M), ``x`` and the previous denoised estimate carried);
+* ``churn_sampler_kernel`` replaces ``pallas_sampler.py:_mega_churn_kernel``
+  (EDM stochastic churn with the Heun correction, two network evaluations
+  per step).
+
+All three share one step body (``net_step`` in ``csrc/sampler_body.cuh``),
+built from the same device functions as the stage kernels
+(``csrc/resnet1d_blocks.cuh``). Rows need not fill the last block: the
+kernels mask the ragged edge themselves (the JAX sampler pads rows to the
 block size instead).
 
-The per-step tables stay in plain PyTorch, outside the kernel: the time
-embedding rows ``compute_time_emb(ts)`` tiled over the Ce conditioning
-channels, and the scheduler coefficients (:func:`_step_coeffs`). DDPM takes
-its per-step noise as an explicit ``[S, BG, L]`` tensor, so tests can feed
-JAX's draws.
+The per-step tables stay in plain PyTorch, outside the kernels: the time
+embedding rows ``compute_time_emb`` tiled over the Ce conditioning
+channels, and the per-step coefficient rows. The samplers that draw noise
+(DDPM, churn) take it as an explicit ``[S, BG, L]`` tensor, so tests can
+feed JAX's draws.
+
+Beside each kernel is its plain PyTorch version (``sampler_plain``,
+``dpmpp_sampler_plain``, ``churn_sampler_plain``) with the same rounding
+points; a wrapper runs it for CPU tensors and launches the kernel (or
+raises) for CUDA tensors.
 """
 
 from __future__ import annotations
@@ -24,6 +39,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..diffusion.elucidated import ElucidatedDiffusion
 from ..diffusion.schedules import DiffusionSchedule
 from .stacked_cuda import (
     DTYPE_CODE,
@@ -40,9 +56,17 @@ from .stacked_cuda import (
 )
 from .stacked_denoiser import compute_time_emb
 
-__all__ = ["SAMPLER_KERNEL", "fused_sample", "sampler_tables", "sampler_plain", "sampler_apply"]
+__all__ = [
+    "SAMPLER_KERNEL", "fused_sample", "sampler_tables", "sampler_plain", "sampler_apply",
+    "DPMPP_KERNEL", "fused_sample_dpmpp", "dpmpp_tables", "dpmpp_sampler_plain",
+    "dpmpp_sampler_apply",
+    "CHURN_KERNEL", "fused_sample_churn", "churn_tables", "churn_sampler_plain",
+    "churn_sampler_apply",
+]
 
 SAMPLER_KERNEL = KernelCounter("ddim_sampler_kernel")
+DPMPP_KERNEL = KernelCounter("dpmpp_sampler_kernel")
+CHURN_KERNEL = KernelCounter("churn_sampler_kernel")
 
 
 def _step_coeffs(schedule: DiffusionSchedule, ts: torch.Tensor, prev: torch.Tensor,
@@ -78,18 +102,24 @@ def _step_coeffs(schedule: DiffusionSchedule, ts: torch.Tensor, prev: torch.Tens
     return torch.stack(rows, dim=-1).float()
 
 
+def _net_plain(w: PackedNet, x_in: torch.Tensor, embin, trow) -> torch.Tensor:
+    """Plain version of ``net_step``: the whole network on ``x_in [BG, L]``
+    (rounded to the compute dtype by the init conv) with the FiLM input
+    ``silu(embin + trow)`` -> float32 values ``[BG, L]`` rounded to it."""
+    emb = _rnd(F.silu(embin + trow), w.dtype)
+    esum = emb.reshape(x_in.shape[0], w.dims.cond_channels, -1).sum(1)
+    h = init_conv(w, x_in)
+    for i in range(len(w.dims.block_channels)):
+        h = _stage_core(w, i, h, esum)
+    return _final_core(w, h, esum)
+
+
 def sampler_plain(w: PackedNet, x_T, embin, trows, coefs, noise, clip: bool,
                   clip_range: float) -> torch.Tensor:
     """Plain version of ``ddim_sampler_kernel``; same rounding points."""
     x = x_T.float().clone()
-    BG, Ce = x.shape[0], w.dims.cond_channels
     for s in range(coefs.shape[0]):
-        emb = _rnd(F.silu(embin + trows[s]), w.dtype)
-        esum = emb.reshape(BG, Ce, -1).sum(1)
-        h = init_conv(w, x)
-        for i in range(len(w.dims.block_channels)):
-            h = _stage_core(w, i, h, esum)
-        eps = _final_core(w, h, esum)
+        eps = _net_plain(w, x, embin, trows[s])
         c = coefs[s]
         x0 = c[0] * x - c[1] * eps
         if clip:
@@ -99,6 +129,29 @@ def sampler_plain(w: PackedNet, x_T, embin, trows, coefs, noise, clip: bool,
         else:
             x = c[2] * x0 + c[3] * x + c[4] * noise[s]
     return x
+
+
+def _cmax(w: PackedNet) -> int:
+    """Widest activation of the network (sizes the kernels' buffers)."""
+    d = w.dims
+    return max((w.w["init_w"].shape[1],) + tuple(d.cins) + tuple(d.block_channels))
+
+
+def _stream(x: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _check_tables(w: PackedNet, x_T, embin, S, **rows) -> None:
+    """Operand checks shared by the sampler wrappers: ``x_T [BG, L]``,
+    ``embin [BG, Ce*E]``, each time-row table ``[S, Ce*E]`` and each
+    coefficient table ``[S, 8]``, all float32 on the weights' device."""
+    d = w.dims
+    BG = x_T.shape[0]
+    CeE, f32 = d.cond_channels * d.emb_dim, torch.float32
+    _check("x_T", x_T, (BG, d.seq_len), f32, w.device)
+    _check("embin", embin, (BG, CeE), f32, w.device)
+    for name, t in rows.items():
+        _check(name, t, (S, 8 if name.startswith("coef") else CeE), f32, w.device)
 
 
 def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
@@ -115,21 +168,16 @@ def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
 
     d = w.dims
     BG, L = x_T.shape
-    S, CeE = coefs.shape[0], d.cond_channels * d.emb_dim
-    f32 = torch.float32
-    _check("x_T", x_T, (BG, L), f32, w.device)
-    _check("embin", embin, (BG, CeE), f32, w.device)
-    _check("trows", trows, (S, CeE), f32, w.device)
-    _check("coefs", coefs, (S, 8), f32, w.device)
+    S, f32 = coefs.shape[0], torch.float32
+    _check_tables(w, x_T, embin, S, trows=trows, coefs=coefs)
     if noise is not None:
         _check("noise", noise, (S, BG, L), f32, w.device)
-    cmax = max((w.w["init_w"].shape[1],) + tuple(d.cins) + tuple(d.block_channels))
     out = torch.empty((BG, L), dtype=f32, device=x_T.device)
     rc = load_library().gl_ddim_sample(
         DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trows), _ptr(coefs),
         _ptr(noise), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L, d.emb_dim,
-        d.cond_channels, d.groups, cmax, int(bool(clip)), float(clip_range),
-        ctypes.c_void_p(torch.cuda.current_stream(x_T.device).cuda_stream),
+        d.cond_channels, d.groups, _cmax(w), int(bool(clip)), float(clip_range),
+        _stream(x_T),
     )
     _raise_on(rc, "ddim_sampler_kernel")
     SAMPLER_KERNEL.launches += 1
@@ -185,4 +233,205 @@ def fused_sample(
         noise.float().contiguous() if sampler == "ddpm" else None,
         schedule.clip_sample, schedule.clip_sample_range,
     )
+    return x0[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# EDM: DPM-Solver++(2M)
+# ---------------------------------------------------------------------------
+
+
+def dpmpp_tables(w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor, N: int):
+    """``dpmpp_sampler_kernel``'s float32 operands besides ``x_T``:
+    ``embin [BG, Ce*E]``, ``trows [N, Ce*E]`` (the time embedding at
+    ``c_noise(sigma_i)``) and ``coefs [N, 8]`` = ``[c_in, c_skip, c_out, g1,
+    g2, ratio, em1, 0]`` at ``sigma_i``, built as
+    ``pallas_sampler.py:fused_sample_dpmpp`` builds them."""
+    device = input_emb.device
+    sigmas = ed.sample_schedule(N)
+    sig_i, sig_next = sigmas[:-1], sigmas[1:]
+    sig_prev = torch.cat([sig_i[:1], sig_i[:-1]])
+
+    def t_fn(s):
+        return -torch.log(torch.clamp(s, min=1e-20))
+
+    def nonzero(v):
+        return torch.where(v == 0, torch.full_like(v, 1e-20), v)
+
+    t_i, t_next = t_fn(sig_i), t_fn(sig_next)
+    h = t_next - t_i
+    r = (t_i - t_fn(sig_prev)) / nonzero(h)
+    gamma = -1.0 / (2.0 * nonzero(r))
+    first = (torch.arange(N) == 0) | (sig_next == 0.0)
+    g1 = torch.where(first, torch.ones_like(gamma), 1.0 - gamma)
+    g2 = torch.where(first, torch.zeros_like(gamma), gamma)
+    ratio = torch.clamp(sig_next, min=1e-20) / torch.clamp(sig_i, min=1e-20)
+    coefs = torch.stack([ed.c_in(sig_i), ed.c_skip(sig_i), ed.c_out(sig_i), g1, g2, ratio,
+                         torch.expm1(-h), torch.zeros_like(h)], dim=-1).float().to(device)
+    Ce = input_emb.shape[1]
+    trows = compute_time_emb(w.aux, ed.c_noise(sig_i).to(device)).repeat(1, Ce).contiguous()
+    embin = input_emb.reshape(input_emb.shape[0], -1).float().contiguous()
+    return embin, trows, coefs
+
+
+def dpmpp_sampler_plain(w: PackedNet, x_T, embin, trows, coefs, clamp: bool) -> torch.Tensor:
+    """Plain version of ``dpmpp_sampler_kernel``; same rounding points (the
+    network input ``c_in * x`` is rounded to the compute dtype)."""
+    x = x_T.float().clone()
+    old = torch.zeros_like(x)
+    for s in range(coefs.shape[0]):
+        c = coefs[s]
+        net = _net_plain(w, c[0] * x, embin, trows[s])
+        den = c[1] * x + c[2] * net
+        if clamp:
+            den = den.clamp(-1.0, 1.0)
+        x = c[5] * x - c[6] * (c[3] * den + c[4] * old)
+        old = den
+    return x
+
+
+def dpmpp_sampler_apply(w: PackedNet, x_T, embin, trows, coefs, clamp=False) -> torch.Tensor:
+    """All N DPM-Solver++(2M) steps for ``x_T [BG, L]`` (fp32, at sigma_max
+    scale) -> ``x_0 [BG, L]`` (fp32); operands from :func:`dpmpp_tables`."""
+    if not _on_cuda(x_T):
+        return dpmpp_sampler_plain(w, x_T, embin, trows, coefs, clamp)
+    from ..cuda_build import load_library
+
+    d = w.dims
+    BG, L = x_T.shape
+    S = coefs.shape[0]
+    _check_tables(w, x_T, embin, S, trows=trows, coefs=coefs)
+    out = torch.empty((BG, L), dtype=torch.float32, device=x_T.device)
+    rc = load_library().gl_dpmpp_sample(
+        DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trows), _ptr(coefs),
+        _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L, d.emb_dim, d.cond_channels,
+        d.groups, _cmax(w), int(bool(clamp)), _stream(x_T),
+    )
+    _raise_on(rc, "dpmpp_sampler_kernel")
+    DPMPP_KERNEL.launches += 1
+    return out
+
+
+def fused_sample_dpmpp(
+    w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor, x_T: torch.Tensor,
+    num_sample_steps: Optional[int] = None, clamp: bool = False,
+) -> torch.Tensor:
+    """EDM DPM-Solver++(2M) in one kernel launch.
+
+    Args:
+        input_emb: ``[BG, Ce, emb]`` hoisted conditioning embedding.
+        x_T: ``[BG, L]`` starting latents at sigma_max scale (float32).
+    Returns:
+        ``x_0 [BG, 1, L]`` float32.
+    """
+    N = num_sample_steps or ed.num_sample_steps
+    embin, trows, coefs = dpmpp_tables(w, ed, input_emb, N)
+    x0 = dpmpp_sampler_apply(w, x_T.float().contiguous(), embin, trows, coefs, clamp)
+    return x0[:, None, :]
+
+
+# ---------------------------------------------------------------------------
+# EDM: stochastic churn with the Heun correction
+# ---------------------------------------------------------------------------
+
+
+def churn_tables(w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor, N: int):
+    """``churn_sampler_kernel``'s float32 operands besides ``x_T`` and the
+    noise: ``embin``, ``trowsA`` / ``trowsB [N, Ce*E]`` (the time embedding
+    at ``c_noise(sigma_hat)`` and ``c_noise(sigma_next)``) and ``coefA`` /
+    ``coefB [N, 8]`` in the layout of ``pallas_sampler.py:298-307``:
+    ``[cinA, cskipA, coutA, s_eps, dsc, 1/sigma_hat, 0, 0]`` and ``[cinB,
+    cskipB, coutB, s_eps, dsc/2, 1/max(sigma_next, 1e-12), sigma_next != 0,
+    0]``. ``S_noise`` is folded into ``s_eps``, so the noise stays a unit
+    normal."""
+    device = input_emb.device
+    sigmas = ed.sample_schedule(N)
+    gammas = ed.churn_gammas(sigmas)
+    sig, sig_next, gamma = sigmas[:-1], sigmas[1:], gammas[:-1]
+    sigma_hat = sig + gamma * sig
+    s_eps = torch.sqrt(torch.clamp(sigma_hat**2 - sig**2, min=0.0)) * ed.S_noise
+    dsc = sig_next - sigma_hat
+    zeros = torch.zeros_like(sig)
+    coefA = torch.stack([ed.c_in(sigma_hat), ed.c_skip(sigma_hat), ed.c_out(sigma_hat), s_eps,
+                         dsc, 1.0 / sigma_hat, zeros, zeros], dim=-1)
+    coefB = torch.stack([ed.c_in(sig_next), ed.c_skip(sig_next), ed.c_out(sig_next), s_eps,
+                         0.5 * dsc, 1.0 / torch.clamp(sig_next, min=1e-12),
+                         (sig_next != 0.0).float(), zeros], dim=-1)
+    Ce = input_emb.shape[1]
+
+    def trows(s):
+        return compute_time_emb(w.aux, ed.c_noise(s).to(device)).repeat(1, Ce).contiguous()
+
+    embin = input_emb.reshape(input_emb.shape[0], -1).float().contiguous()
+    return (embin, trows(sigma_hat), trows(sig_next), coefA.float().to(device),
+            coefB.float().to(device))
+
+
+def churn_sampler_plain(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, noise,
+                        clamp: bool) -> torch.Tensor:
+    """Plain version of ``churn_sampler_kernel``; same rounding points (the
+    network inputs ``cinA * x_hat`` and ``cinB * x_eul``)."""
+    x = x_T.float().clone()
+    for s in range(coefA.shape[0]):
+        a, c = coefA[s], coefB[s]
+        x_hat = x + a[3] * noise[s]
+        den = a[1] * x_hat + a[2] * _net_plain(w, a[0] * x_hat, embin, trowsA[s])
+        if clamp:
+            den = den.clamp(-1.0, 1.0)
+        d = (x_hat - den) * a[5]
+        x_eul = x_hat + a[4] * d
+        den = c[1] * x_eul + c[2] * _net_plain(w, c[0] * x_eul, embin, trowsB[s])
+        if clamp:
+            den = den.clamp(-1.0, 1.0)
+        d_prime = (x_eul - den) * c[5]
+        x = c[6] * (x_hat + c[4] * (d + d_prime)) + (1.0 - c[6]) * x_eul
+    return x
+
+
+def churn_sampler_apply(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, noise,
+                        clamp=False) -> torch.Tensor:
+    """All N churn steps (two network evaluations each) for ``x_T [BG, L]``
+    (fp32, at sigma_max scale) with per-step unit normals ``noise [N, BG,
+    L]`` -> ``x_0 [BG, L]`` (fp32); operands from :func:`churn_tables`."""
+    if not _on_cuda(x_T):
+        return churn_sampler_plain(w, x_T, embin, trowsA, trowsB, coefA, coefB, noise, clamp)
+    from ..cuda_build import load_library
+
+    d = w.dims
+    BG, L = x_T.shape
+    S = coefA.shape[0]
+    _check_tables(w, x_T, embin, S, trowsA=trowsA, trowsB=trowsB, coefA=coefA, coefB=coefB)
+    _check("noise", noise, (S, BG, L), torch.float32, w.device)
+    out = torch.empty((BG, L), dtype=torch.float32, device=x_T.device)
+    rc = load_library().gl_churn_sample(
+        DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trowsA), _ptr(trowsB), _ptr(coefA),
+        _ptr(coefB), _ptr(noise), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L,
+        d.emb_dim, d.cond_channels, d.groups, _cmax(w), int(bool(clamp)), _stream(x_T),
+    )
+    _raise_on(rc, "churn_sampler_kernel")
+    CHURN_KERNEL.launches += 1
+    return out
+
+
+def fused_sample_churn(
+    w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor, x_T: torch.Tensor,
+    num_sample_steps: Optional[int] = None, clamp: bool = False,
+    noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """EDM stochastic churn sampler (Heun) in one kernel launch.
+
+    Args:
+        input_emb: ``[BG, Ce, emb]`` hoisted conditioning embedding.
+        x_T: ``[BG, L]`` starting latents at sigma_max scale (float32).
+        noise: ``[N, BG, L]`` per-step unit normals; drawn from
+            ``generator`` if None.
+    Returns:
+        ``x_0 [BG, 1, L]`` float32.
+    """
+    N = num_sample_steps or ed.num_sample_steps
+    tables = churn_tables(w, ed, input_emb, N)
+    if noise is None:
+        noise = torch.randn((N,) + tuple(x_T.shape), generator=generator, device=x_T.device)
+    x0 = churn_sampler_apply(w, x_T.float().contiguous(), *tables,
+                             noise.float().contiguous(), clamp)
     return x0[:, None, :]

@@ -39,7 +39,7 @@ def make_batch_generate_from_parts(
     ddm=None,
     diffusion=None,
     *,
-    device,
+    device=None,
     num_grasps: int = 64,
     num_inference_steps: int = 100,
     sampler: str = "ddim",
@@ -47,19 +47,24 @@ def make_batch_generate_from_parts(
 ) -> Callable[[np.ndarray, Optional[np.ndarray]], Dict]:
     """Build the batcher's compute callable from model parts.
 
-    LDM mode when ``ddm`` is given, VAE-prior mode otherwise. The models
-    move to ``device`` (a CUDA device runs the kernels, the CPU their plain
+    LDM mode when ``ddm`` is given, VAE-prior mode otherwise. ``diffusion``
+    is a ``GaussianDiffusion1D`` (``sampler`` "ddim" / "ddpm") or an
+    ``ElucidatedDiffusion`` (``sampler`` "dpmpp", else churn), and
+    ``sampler`` / ``num_inference_steps`` pass through to ``ldm_generate``.
+    The models move to ``device`` (default: the CUDA card; with no card and
+    no device named this raises; ``device="cpu"`` runs the kernels' plain
     versions) and their kernel weights are packed once here;
     normalization (per-object centering) runs in the request path, so the
     host hands over raw metric points. Class-conditioned serving is not
     ported yet: a ``cls`` field is refused.
     """
+    from ..flagship import resolve_device
     from ..inference.pipeline import ldm_generate, pack_generation_weights, vae_generate
     from ..utils.normalization import normalize_pc_and_grasps
 
     if ddm is not None and diffusion is None:
         raise ValueError("LDM serving needs the diffusion process")
-    device = torch.device(device)
+    device = resolve_device(device)
     vae = vae.to(device).eval()
     if ddm is not None:
         ddm = ddm.to(device).eval()

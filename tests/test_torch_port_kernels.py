@@ -18,7 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from graspldm_tpu_torch.diffusion import DiffusionSchedule
+from graspldm_tpu_torch.diffusion import DiffusionSchedule, ElucidatedDiffusion
+from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
 from graspldm_tpu_torch.models import GraspCVAE, GraspLatentDDM
 from graspldm_tpu_torch.models import cuda_sampler as cs
 from graspldm_tpu_torch.models import stacked_cuda as sc
@@ -33,7 +34,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def _counts():
-    return (sc.STAGE_KERNEL.launches, sc.FINAL_KERNEL.launches, cs.SAMPLER_KERNEL.launches)
+    return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL, cs.SAMPLER_KERNEL,
+                                      cs.DPMPP_KERNEL, cs.CHURN_KERNEL))
 
 
 @pytest.fixture(scope="module")
@@ -42,9 +44,14 @@ def nets():
     vae = GraspCVAE(dropout=None, pc_num_points=32, pc_scale_channels=0.25,
                     pc_scale_voxel_resolution=0.25).eval()
     ddm = GraspLatentDDM(dropout=None).eval()
+    # the ppc denoiser: latent 16 (so L = 16), z_pc [3, 256]
+    ddm16 = GraspLatentDDM(latent_in_features=16, pc_latent_size=256, dropout=None).eval()
+    dims16 = _denoiser_dims(ddm16)
     ddims = decoder_dims_for(vae)
     return dict(dec_math=pack_math_weights(vae.decoder.net, ddims), dec_dims=ddims,
-                den_math=pack_math_weights(ddm, FLAGSHIP_DIMS))
+                den_math=pack_math_weights(ddm, FLAGSHIP_DIMS),
+                den={4: (pack_math_weights(ddm, FLAGSHIP_DIMS), FLAGSHIP_DIMS),
+                     16: (pack_math_weights(ddm16, dims16), dims16)})
 
 
 def test_port_never_imports_jax():
@@ -87,6 +94,47 @@ def test_wrappers_run_plain_versions_on_cpu(nets):
     torch.testing.assert_close(sc.final_apply(w, h, emb), sc.final_plain(w, h, emb),
                                rtol=0, atol=0)
     assert _counts() == before
+
+
+def test_edm_wrappers_run_plain_versions_on_cpu(nets):
+    """On CPU tensors the EDM sampler wrappers are their plain versions,
+    launch nothing, and keep x_T's shape."""
+    math, dims = nets["den"][4]
+    w = sc.PackedNet(math, dims)
+    g = torch.Generator().manual_seed(4)
+    ed, N, BG = ElucidatedDiffusion(n_dims=4), 3, 5
+    input_emb = compute_input_emb(w.aux, torch.randn(BG, 3, 64, generator=g))
+    x_T = 80.0 * torch.randn(BG, 4, generator=g)
+    noise = torch.randn(N, BG, 4, generator=g)
+    before = _counts()
+    dp = cs.dpmpp_tables(w, ed, input_emb, N)
+    got = cs.dpmpp_sampler_apply(w, x_T, *dp)
+    torch.testing.assert_close(got, cs.dpmpp_sampler_plain(w, x_T, *dp, False), rtol=0, atol=0)
+    ch = cs.churn_tables(w, ed, input_emb, N)
+    got = cs.churn_sampler_apply(w, x_T, *ch, noise)
+    torch.testing.assert_close(got, cs.churn_sampler_plain(w, x_T, *ch, noise, False),
+                               rtol=0, atol=0)
+    assert got.shape == (BG, 4) and bool(torch.isfinite(got).all())
+    assert _counts() == before
+
+
+def test_entry_points_refuse_to_build_on_the_cpu_unasked(monkeypatch):
+    """With no card and no device named, the entry points raise instead of
+    quietly building on the CPU; naming the CPU builds there."""
+    from graspldm_tpu_torch.flagship import FlagshipConfig, build_flagship
+    from graspldm_tpu_torch.serving import make_batch_generate_from_parts
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = FlagshipConfig(pc_num_points=32, pc_scale_channels=0.125,
+                         pc_scale_voxel_resolution=0.25, block_channels=(8, 16))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_flagship()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_flagship(cfg)
+    vae, ddm, diff = build_flagship(cfg, device="cpu")
+    assert next(vae.parameters()).device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_batch_generate_from_parts(vae, ddm, diff)
 
 
 def test_wrappers_refuse_other_devices(nets):
@@ -172,6 +220,75 @@ def test_sampler_kernel_matches_plain_on_card(cuda, nets, sampler, dtype):
     torch.testing.assert_close(got, ref, **tol)
 
 
+# EDM has no clip, so the limits are relative to the output's largest
+# magnitude: (largest error, mean error) per number of steps. float32:
+# summation order only, as above. bfloat16: chip_smoke.py's limits
+# (TOL_BF16_EDM, TOL_BF16_EDM_MEAN over a trajectory, TOL_BF16_EDM_STEP_MEAN
+# over 2 steps, where they hold the rounding points), which states why and
+# why float32 is not held over 2 steps
+EDM_TOLS = {torch.float32: {6: (1e-4, None)},
+            torch.bfloat16: {2: (2.0 ** -4, 2.0 ** -10.5), 6: (2.0 ** -4, 2.0 ** -9)}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_edm_sampler_kernels_match_plain_on_card(cuda, nets, dtype, L):
+    """dpmpp_sampler_kernel and churn_sampler_kernel against their plain
+    versions at L = 4 (fpc) and L = 16 (ppc), over a BG that is ragged at
+    every block size (16, 9, 4 and 2 rows), for 6 steps and (bf16) 2."""
+    math, dims = nets["den"][L]
+    w = sc.PackedNet(math, dims, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    BG, ed = 4101, ElucidatedDiffusion(n_dims=L)
+    z_pc = torch.randn(BG, 3, dims.cond_dim, generator=g, device=cuda)
+    input_emb = compute_input_emb(w.aux, z_pc)
+    x_T = 80.0 * torch.randn(BG, L, generator=g, device=cuda)
+    noise = torch.randn(6, BG, L, generator=g, device=cuda)
+    for N, (tol, tol_mean) in EDM_TOLS[dtype].items():
+        dp = cs.dpmpp_tables(w, ed, input_emb, N)
+        ch = cs.churn_tables(w, ed, input_emb, N)
+        nz = noise[:N].contiguous()
+        runs = [
+            (cs.DPMPP_KERNEL, lambda: cs.dpmpp_sampler_apply(w, x_T, *dp),
+             lambda: cs.dpmpp_sampler_plain(w, x_T, *dp, False)),
+            (cs.CHURN_KERNEL, lambda: cs.churn_sampler_apply(w, x_T, *ch, nz),
+             lambda: cs.churn_sampler_plain(w, x_T, *ch, nz, False)),
+        ]
+        for counter, kernel, plain in runs:
+            before = counter.launches
+            got = kernel()
+            assert counter.launches == before + 1
+            torch.cuda.synchronize()
+            ref = plain()
+            scale = max(1.0, ref.abs().max().item())
+            msg = f"{counter.name}, {N} steps"
+            torch.testing.assert_close(got, ref, rtol=0, atol=tol * scale, msg=msg)
+            if tol_mean is not None:
+                mean = (got - ref).abs().mean().item()
+                assert mean <= tol_mean * scale, (msg, mean, tol_mean * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ddim_sampler_kernel_matches_plain_at_l16_on_card(cuda, nets, dtype):
+    """ddim_sampler_kernel at the ppc denoiser's L = 16 over a ragged BG."""
+    math, dims = nets["den"][16]
+    w = sc.PackedNet(math, dims, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    BG, S = 37, 8
+    schedule = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
+    z_pc = torch.randn(BG, 3, dims.cond_dim, generator=g, device=cuda)
+    embin, trows, coefs = cs.sampler_tables(w, schedule, compute_input_emb(w.aux, z_pc), S,
+                                            "ddim", "fixed_large")
+    x_T = torch.randn(BG, 16, generator=g, device=cuda)
+    got = cs.sampler_apply(w, x_T, embin, trows, coefs)
+    torch.cuda.synchronize()
+    ref = cs.sampler_plain(w, x_T, embin, trows, coefs, None, True, 1.0)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0, atol=2.0 ** -4)
+    torch.testing.assert_close(got, ref, **tol)
+
+
 def _seeded_ldm(device, seed):
     """A reduced flagship (random weights from a seeded generator) and one
     seeded ``ldm_generate`` (DDPM, so the per-step noise is drawn too)."""
@@ -180,7 +297,8 @@ def _seeded_ldm(device, seed):
 
     cfg = FlagshipConfig(pc_num_points=64, pc_scale_channels=0.125,
                          pc_scale_voxel_resolution=0.25, block_channels=(16, 32))
-    vae, ddm, diff = build_flagship(cfg, generator=torch.Generator().manual_seed(0))
+    vae, ddm, diff = build_flagship(cfg, generator=torch.Generator().manual_seed(0),
+                                    device="cpu")
     pc = torch.randn(2, 64, 3, generator=torch.Generator().manual_seed(1)).to(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     out = ldm_generate(vae.to(device), ddm.to(device), diff, pc, 8, gen,

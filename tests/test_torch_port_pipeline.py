@@ -79,7 +79,7 @@ def m():
     zc = rng.normal(size=(4, 3, 64)).astype(np.float32)
     dv = jax.tree.map(np.asarray, jax.jit(jddm.init)(
         jax.random.PRNGKey(1), x, np.zeros(4, np.int32), zc))
-    vae, ddm, diff = build_flagship(FlagshipConfig(**CFG))
+    vae, ddm, diff = build_flagship(FlagshipConfig(**CFG), device="cpu")
     vae.load_state_dict(grasp_cvae_state_dict(vv), strict=True)
     ddm.load_state_dict(grasp_ldm_state_dict(dv), strict=True)
     jpc_n, _, jmeta = j_normalize(pc, np.zeros((B, 1, 6), np.float32))
@@ -116,7 +116,7 @@ def test_vae_generate_matches_jax(m):
 
 @pytest.mark.parametrize("option", [
     dict(cfg_scale=2.0), dict(guidance_scale=1.0), dict(return_trajectory=True),
-    dict(cls_cond=torch.zeros(B * G)), dict(sampler="dpmpp"),
+    dict(cls_cond=torch.zeros(B * G)), dict(region_points=torch.zeros(B * G, 8, 3)),
 ])
 def test_unported_generation_options_raise(m, option):
     with pytest.raises(NotImplementedError):
@@ -124,10 +124,19 @@ def test_unported_generation_options_raise(m, option):
                      **option)
 
 
-@pytest.mark.parametrize("option", [dict(elucidated=True), dict(conditioning="class")])
+def test_edm_sampler_needs_elucidated_diffusion(m):
+    """"dpmpp" / "churn" are EDM samplers: with a GaussianDiffusion1D they
+    are refused, as the JAX package's ``GaussianDiffusion1D.sample`` does."""
+    for sampler in ("dpmpp", "churn"):
+        with pytest.raises(ValueError, match="ElucidatedDiffusion"):
+            ldm_generate(m["vae"], m["ddm"], m["diff"], m["pc_n"], G, num_inference_steps=2,
+                         sampler=sampler)
+
+
+@pytest.mark.parametrize("option", [dict(conditioning="region"), dict(conditioning="class")])
 def test_unported_flagship_options_raise(option):
     with pytest.raises(NotImplementedError):
-        build_flagship(FlagshipConfig(**option))
+        build_flagship(FlagshipConfig(**option), device="cpu")
 
 
 def _post(url, body):

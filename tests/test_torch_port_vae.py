@@ -52,7 +52,7 @@ def m():
     pc = rng.normal(0.0, 0.5, size=(2, CFG["pc_num_points"], 3)).astype(np.float32)
     grasps = rng.normal(size=(4, 7)).astype(np.float32)
     vv = jax.tree.map(np.asarray, jax.jit(jvae.init)(jax.random.PRNGKey(0), pc, grasps))
-    vae = build_flagship(FlagshipConfig(**CFG))[0]
+    vae = build_flagship(FlagshipConfig(**CFG), device="cpu")[0]
     vae.load_state_dict(grasp_cvae_state_dict(vv), strict=True)
     return dict(jvae=jvae, vv=vv, vae=vae, pc=pc, grasps=grasps, rng=rng)
 
