@@ -18,7 +18,13 @@ any phase fails (every phase runs; the failures are listed at the end):
    steps) at fpc, and all three sampler kernels at the ppc denoiser's
    L = 16 (checked at BG = 1021 over 8 steps, then checked and timed at
    BG = 1024 with their full step counts); the EDM kernels' bf16 rounding
-   points are also held over 2 steps at both, against bf16's own spread;
+   points are also held over 2 steps at both, against bf16's own spread.
+   The per-step kernels of the trajectory path (``ddim_step_kernel``,
+   ``dpmpp_step_kernel``, ``churn_step_kernel``) are held the same way:
+   over their first few chained steps against their plain steps at fpc
+   (BG = 4096) and ppc (BG = 1024), both also at a ragged BG = 1021, timed
+   per launch at BG = 4096 / 1024, and their whole chains (one launch per
+   step) against the whole-trajectory kernels at the main paths' shapes;
 4. the DDIM main path: the full-width fpc flagship (random weights from a
    seeded ``torch.Generator``), ``ldm_generate`` for 4 clouds x 1024
    points, 1024 grasps each, 100 DDIM steps, bf16 kernels (twice: the first
@@ -31,12 +37,17 @@ any phase fails (every phase runs; the failures are listed at the end):
    the EDM ppc flagship with DPM++ at 32 and churn at 100 steps for one
    cloud x 1024 grasps, and 3 requests through a second ``GraspServer``
    (DPM++, 32 steps);
-6. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn) on the
-   card against the same calls on the CPU, where every kernel wrapper runs
-   its plain version.
+6. the trajectory main path: ``ldm_generate(return_trajectory=True)`` on
+   the fpc flagships (4 clouds x 1024 grasps; DDIM 100, DPM++ 32, churn
+   100; each twice) and the ppc flagships (one cloud x 1024 grasps, the
+   same samplers), bf16 kernels: every decoded state is checked, and each
+   call's wall time is split into sampler, decode and the rest;
+7. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn, and a
+   DDIM trajectory) on the card against the same calls on the CPU, where
+   every kernel wrapper runs its plain version.
 
-The kernel launch counts are zeroed just before each main path (4 and 5)
-and read just after it; every call inside checks its exact counts, and
+The kernel launch counts are zeroed just before each main path (4, 5 and
+6) and read just after it; every call inside checks its exact counts, and
 each launch is booked to the configuration (fpc or ppc) of its call. The
 script prints its wall time, then the kernels' JSON record, then as its
 last line ``{"ok": true, "device": {...}}``.
@@ -44,6 +55,7 @@ last line ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
@@ -65,6 +77,9 @@ PPC = dict(pc_latent_size=256, grasp_latent_size=16)
 PPC_BG_CHECK, PPC_STEPS_CHECK = 1021, 8  # ragged at 4 rows per block (bf16) and 2 (fp32)
 PPC_BG = 1024
 PPC_STEPS = {"ddim": 100, "dpmpp": 32, "churn": 100}
+TRAJ_STEPS = {"ddim": 100, "dpmpp": 32, "churn": 100}  # the trajectory main path's
+STEP_CHAIN = 3  # chained steps each per-step kernel is held over against its plain steps
+RAGGED_BG = 1021  # ragged at every block size of the step kernels (16, 9, 4, 2 rows)
 
 # float32: the kernel and the plain version do the same float32 math and
 # differ only in summation order (~1e-6 relative measured); 1e-4 relative
@@ -105,6 +120,17 @@ TOL_BF16_EDM_MEAN = 2.0 ** -9  # mean error (4x the largest reading)
 # churn divides by sigma_min = 0.002 in its Heun step, so x_0 carries
 # about 2e4 times any difference in the network's output, fp32's too.)
 TOL_BF16_EDM_STEP_MEAN = 2.0 ** -10.5  # mean error
+# The per-step kernels in bfloat16, over their first STEP_CHAIN chained
+# steps against their plain steps: largest error TOL_BF16_SAMPLER
+# (DDIM/DDPM) or TOL_BF16_EDM, and a mean error relative to max|state|
+# that only the same rounding points meet. On an H100 80GB HBM3 at 700 W
+# the kernels' mean read at most 4.6e-7 / 2.1e-7 / 4.3e-8 (DDIM / DPM++ /
+# churn) and bf16's own spread over the same steps at least 7.0e-6 /
+# 4.2e-6 / 9.3e-7 (churn's first steps at sigma_max barely move x, so
+# both are smaller there). Each limit lies 4-9x above the kernel and 2-4x
+# below the spread; as above, the script fails unless the spread lies
+# above it.
+TOL_BF16_STEP_MEAN = {"ddim": 2.0 ** -19, "dpmpp": 2.0 ** -19, "churn": 2.0 ** -22}
 # float32 end to end, card vs CPU: PVCNN (cuDNN vs CPU convolutions) and
 # the sampler's steps reorder sums; grasp entries are O(1).
 TOL_E2E = 1e-3
@@ -114,12 +140,21 @@ TOL_E2E = 1e-3
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
 PEAK_BYTES = 3.35e12
 
+_PS = "graspldm_tpu/models/pallas_sampler.py"
 REPLACES = {
     "stage_kernel": "graspldm_tpu/models/stacked_pallas.py:900",
     "final_kernel": "graspldm_tpu/models/stacked_pallas.py:914",
-    "ddim_sampler_kernel": "graspldm_tpu/models/pallas_sampler.py:482",
-    "dpmpp_sampler_kernel": "graspldm_tpu/models/pallas_sampler.py:513",
-    "churn_sampler_kernel": "graspldm_tpu/models/pallas_sampler.py:535",
+    "ddim_sampler_kernel": f"{_PS}:482",
+    "dpmpp_sampler_kernel": f"{_PS}:513",
+    "churn_sampler_kernel": f"{_PS}:535",
+    # each per-step kernel stands for the one-launch step and for the chain
+    "ddim_step_kernel": f"{_PS}:156 _full_step_kernel; {_PS}:79 _stage0_kernel, "
+                        f"{_PS}:94 _mid_stage_kernel, {_PS}:181 _final_step_kernel",
+    "dpmpp_step_kernel": f"{_PS}:270 _full_dpmpp_kernel; {_PS}:210 _stage0_dpmpp_kernel, "
+                         f"{_PS}:94 _mid_stage_kernel, {_PS}:253 _final_dpmpp_kernel",
+    "churn_step_kernel": f"{_PS}:441 _full_churn_kernel; {_PS}:320 _stage0_churn_a_kernel, "
+                         f"{_PS}:94 _mid_stage_kernel, {_PS}:358 _final_churn_a_kernel, "
+                         f"{_PS}:210 _stage0_dpmpp_kernel, {_PS}:399 _final_churn_b_kernel",
 }
 SOURCES = {
     "stage_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
@@ -127,7 +162,12 @@ SOURCES = {
     "ddim_sampler_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "dpmpp_sampler_kernel": "graspldm_tpu_torch/csrc/dpmpp_sampler.cu",
     "churn_sampler_kernel": "graspldm_tpu_torch/csrc/churn_sampler.cu",
+    "ddim_step_kernel": "graspldm_tpu_torch/csrc/step_samplers.cu",
+    "dpmpp_step_kernel": "graspldm_tpu_torch/csrc/step_samplers.cu",
+    "churn_step_kernel": "graspldm_tpu_torch/csrc/step_samplers.cu",
 }
+STEP_KERNEL = {"ddim": "ddim_step_kernel", "dpmpp": "dpmpp_step_kernel",
+               "churn": "churn_step_kernel"}
 
 
 def log(*a) -> None:
@@ -160,7 +200,7 @@ def counters():
     from graspldm_tpu_torch.models import stacked_cuda as sc
 
     return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL,
-            cs.CHURN_KERNEL)
+            cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL, cs.CHURN_STEP_KERNEL)
 
 
 def counts() -> dict:
@@ -532,6 +572,145 @@ def ppc_kernel_phase(run: Run, ddm, ed, sched, dev) -> None:
             hold(run, w, runs, steps, "ppc", bg, mode, refs, PPC_BG, PPC_STEPS)
 
 
+def steppers(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
+    """One step of sampler ``kind`` (n steps; its tables at that count) as
+    ``(x_start, carry0, kernel step, plain step, evaluations per launch,
+    operands of one launch)``; a step is ``(s, x, carry) -> (x_new,
+    carry)``, the carry being DPM++'s previous denoised estimate."""
+    from graspldm_tpu_torch.models import cuda_sampler as cs
+
+    if kind == "ddim":
+        embin, trows, coefs = cs.sampler_tables(w, sched, input_emb, n, "ddim", "fixed_large")
+
+        def k(s, x, c):
+            return cs.ddim_step_apply(w, x, embin, trows[s], coefs[s]), None
+
+        def p(s, x, c):
+            return cs.ddim_step_plain(w, x, embin, trows[s], coefs[s], None, True, 1.0), None
+
+        return x_unit, None, k, p, 1, (x_unit, embin, trows[0], coefs[0])
+    x_T = (ed.sigma_max * x_unit).contiguous()
+    if kind == "dpmpp":
+        embin, trows, coefs = cs.dpmpp_tables(w, ed, input_emb, n)
+
+        def k(s, x, old):
+            return cs.dpmpp_step_apply(w, x, old, embin, trows[s], coefs[s])
+
+        def p(s, x, old):
+            return cs.dpmpp_step_plain(w, x, old, embin, trows[s], coefs[s], False)
+
+        # in: x, old and one step's tables; out: x_new and the denoised estimate
+        return (x_T, torch.zeros_like(x_T), k, p, 1,
+                (x_T, x_T, embin, trows[0], coefs[0], x_T))
+    embin, tA, tB, cA, cB = cs.churn_tables(w, ed, input_emb, n)
+
+    def k(s, x, c):
+        return cs.churn_step_apply(w, x, embin, tA[s], tB[s], cA[s], cB[s], noise[s]), None
+
+    def p(s, x, c):
+        return cs.churn_step_plain(w, x, embin, tA[s], tB[s], cA[s], cB[s], noise[s],
+                                   False), None
+
+    return x_T, None, k, p, 2, (x_T, noise[0], embin, tA[0], tB[0], cA[0], cB[0])
+
+
+def step_tols(tag: str, kind: str):
+    """(max limit, mean limit) of a step kernel's few chained steps,
+    relative to max(1, max|state|): TOL_FP32; in bf16 the sampler limit
+    (TOL_BF16_SAMPLER for DDIM, TOL_BF16_EDM) and TOL_BF16_STEP_MEAN."""
+    if tag == "fp32":
+        return TOL_FP32, None
+    return (TOL_BF16_SAMPLER if kind == "ddim" else TOL_BF16_EDM), TOL_BF16_STEP_MEAN[kind]
+
+
+def chain_vs_whole(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
+    """x_0 of n step-kernel launches (``fused_sample*(return_trajectory=
+    True)``) and of the whole-trajectory kernel, on the same inputs."""
+    from graspldm_tpu_torch.models import cuda_sampler as cs
+
+    if kind == "ddim":
+        def run(traj):
+            return cs.fused_sample(w, sched, input_emb, x_unit, n, "ddim",
+                                   return_trajectory=traj)
+    elif kind == "dpmpp":
+        def run(traj):
+            return cs.fused_sample_dpmpp(w, ed, input_emb, ed.sigma_max * x_unit, n,
+                                         return_trajectory=traj)
+    else:
+        def run(traj):
+            return cs.fused_sample_churn(w, ed, input_emb, ed.sigma_max * x_unit, n,
+                                         noise=noise[:n], return_trajectory=traj)
+    chain = run(True)[0]
+    return chain[:, 0], run(False)[:, 0]
+
+
+def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) -> None:
+    """The three per-step kernels at ``config``'s denoiser against their
+    plain steps: STEP_CHAIN chained steps of each at BG = ``bg_full`` and
+    RAGGED_BG, one launch timed at ``bg_full`` (mid-trajectory), and the
+    whole chain of TRAJ_STEPS launches against the whole-trajectory kernel
+    at ``bg_full``."""
+    from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet
+    from graspldm_tpu_torch.models.stacked_denoiser import compute_input_emb, pack_math_weights
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    dims = _denoiser_dims(ddm)
+    L = dims.seq_len
+    math_w = pack_math_weights(ddm, dims)
+    z_pc = torch.randn((bg_full, 3, dims.cond_dim), generator=gen, device=dev)
+    x_unit = torch.randn((bg_full, L), generator=gen, device=dev)
+    noise = torch.randn((max(TRAJ_STEPS.values()), bg_full, L), generator=gen, device=dev)
+    fp32_states = {}  # (kind, bg) -> the plain fp32 state after STEP_CHAIN steps
+    for dt in (torch.float32, torch.bfloat16):
+        w = PackedNet(math_w, dims, dt, dev)
+        tag = tag_of(dt)
+        for bg in (RAGGED_BG, bg_full):
+            log(f"[kernels] step kernels {config} {tag}, L={L}, BG={bg}")
+            input_emb = compute_input_emb(w.aux, z_pc[:bg])
+            for kind, n in TRAJ_STEPS.items():
+                name = STEP_KERNEL[kind]
+                x0, c0, kstep, pstep, evals, ops = steppers(
+                    w, kind, sched, ed, input_emb, x_unit[:bg].contiguous(),
+                    noise[:, :bg].contiguous(), n)
+                tol, tol_mean = step_tols(tag, kind)
+                xk, ck, xp, cp, err = x0, c0, x0, c0, 0.0
+                for s in range(STEP_CHAIN):
+                    xk, ck = kstep(s, xk, ck)
+                    torch.cuda.synchronize()
+                    xp, cp = pstep(s, xp, cp)
+                    err = max(err, run.compare(f"{name} {kind} {config} BG={bg} step {s}", xk, xp,
+                                               tol, tol_mean))
+                r = run.record(name, config, L, bg_full, 1, tag, what=f"one {kind} step per launch")
+                r.setdefault("err_checked_at", []).append(
+                    dict(BG=bg, steps=STEP_CHAIN, max_abs_err=err))
+                if tag == "fp32":
+                    fp32_states[(kind, bg)] = xp
+                else:
+                    r.setdefault("bf16_vs_fp32_plain_steps", []).append(dict(
+                        BG=bg, **spread(run, f"{name} {config} BG={bg} x {STEP_CHAIN} steps", xp,
+                                        fp32_states[(kind, bg)], TOL_BF16_STEP_MEAN[kind])))
+                if bg != bg_full:
+                    continue
+                r["err"] = err
+                s_mid = n // 2
+                k_ms = cuda_ms(lambda: kstep(s_mid, x0, c0), 10)
+                p_ms = cuda_ms(lambda: pstep(s_mid, x0, c0), 3)
+                r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, tag, *ops))
+                log(f"  {name} {kind}: kernel {k_ms:.3f} ms per launch, plain {p_ms:.3f} ms; "
+                    f"bound {r['bound_ms']:.4f} ms")
+                chain, whole = chain_vs_whole(w, kind, sched, ed, input_emb, x_unit, noise, n)
+                torch.cuda.synchronize()
+                cw = (TOL_FP32, None, False) if tag == "fp32" else (
+                    (TOL_BF16_SAMPLER, None, True) if kind == "ddim"
+                    else (TOL_BF16_EDM, TOL_BF16_EDM_MEAN, False))
+                e = run.compare(f"{name} x {n} launches vs the whole-trajectory kernel "
+                                f"{config} BG={bg}", chain, whole, *cw)
+                bitwise = bool(torch.equal(chain, whole))
+                log(f"  bitwise equal to the whole-trajectory kernel: {bitwise}")
+                r["chain_vs_whole"] = dict(steps=n, max_abs_err=e, bitwise_equal=bitwise)
+
+
 # ---------------------------------------------------------------------------
 # main paths
 # ---------------------------------------------------------------------------
@@ -546,14 +725,20 @@ def check_grasps(out: dict, b: int, g: int) -> None:
     for k, v in out.items():
         if not bool(torch.isfinite(torch.as_tensor(v)).all()):
             raise AssertionError(f"{k} has non-finite values")
+    conf = torch.as_tensor(out["confidence"])
+    check_poses(H, f"confidence in [{conf.min().item():.3f}, {conf.max().item():.3f}]")
+
+
+def check_poses(H, note: str = "") -> None:
+    """Every 4x4 pose of ``H [..., 4, 4]`` has an orthonormal rotation block
+    with det +1 and the bottom row [0, 0, 0, 1]."""
     H = torch.as_tensor(H).double().cpu()
     R = H[..., :3, :3]
     ortho = (R @ R.transpose(-1, -2) - torch.eye(3, dtype=R.dtype)).abs().max().item()
     det = (torch.linalg.det(R) - 1.0).abs().max().item()
     bottom = (H[..., 3, :] - torch.tensor([0, 0, 0, 1.0], dtype=H.dtype)).abs().max().item()
-    conf = torch.as_tensor(out["confidence"])
-    log(f"  |R R^T - I| {ortho:.2e}, |det R - 1| {det:.2e}, bottom row {bottom:.1e}, "
-        f"confidence in [{conf.min().item():.3f}, {conf.max().item():.3f}]")
+    log(f"  |R R^T - I| {ortho:.2e}, |det R - 1| {det:.2e}, bottom row {bottom:.1e}"
+        + (f", {note}" if note else ""))
     if ortho > 1e-4 or det > 1e-4 or bottom != 0.0:
         raise AssertionError("rotation blocks are not orthonormal")
 
@@ -641,6 +826,87 @@ def edm_generation_phase(run: Run, fpc, ppc, dev) -> None:
                   f"{sampler}_sampler_kernel", "ppc", calls=1)
 
 
+def per_trajectory_call(kind: str, steps: int) -> dict:
+    """One ``ldm_generate(return_trajectory=True)`` call: one step-kernel
+    launch per step, and the decode of x_0 and of min(50, S') states (S' =
+    steps + 1 with x_T first, DPM++ steps)."""
+    decoded = 1 + min(50, steps if kind == "dpmpp" else steps + 1)
+    return {STEP_KERNEL[kind]: steps, "stage_kernel": 4 * decoded, "final_kernel": decoded}
+
+
+@contextlib.contextmanager
+def split_times(times: dict):
+    """Add the host time of ``ldm_generate``'s sampler call and of its
+    decodes (each bracketed by ``torch.cuda.synchronize``) to ``times``
+    ("sampler", "decode"), by wrapping the pipeline module's names for the
+    duration."""
+    from graspldm_tpu_torch.inference import pipeline as pl
+
+    parts = {"fused_sample": "sampler", "fused_sample_dpmpp": "sampler",
+             "fused_sample_churn": "sampler", "decode_and_postprocess": "decode"}
+    saved = {n: getattr(pl, n) for n in parts}
+
+    def timed(fn, part):
+        def call(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            torch.cuda.synchronize()
+            times[part] = times.get(part, 0.0) + time.perf_counter() - t0
+            return res
+        return call
+
+    for n, part in parts.items():
+        setattr(pl, n, timed(saved[n], part))
+    try:
+        yield times
+    finally:
+        for n, fn in saved.items():
+            setattr(pl, n, fn)
+
+
+def trajectory_phase(run: Run, fpc: dict, ppc: dict, dev) -> None:
+    """``ldm_generate(return_trajectory=True)`` at full width, bf16: fpc (B
+    clouds x G grasps, each sampler twice) and ppc (one cloud x G). Checks
+    the trajectory's and the decoded states' shapes, every decoded pose,
+    and exact launch counts; prints each call's wall time split into
+    sampler, decode and the rest."""
+    from graspldm_tpu_torch.inference.pipeline import ldm_generate
+
+    for config, models, b, calls in (("fpc", fpc, B, 2), ("ppc", ppc, 1, 1)):
+        pc_n, meta = _normalized(dev, b, SEED if config == "fpc" else SEED + 7)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+        for kind, steps in TRAJ_STEPS.items():
+            vae, ddm, diffusion = models["ddim" if kind == "ddim" else "edm"]
+            L = ddm.latent_in_features
+            n_states = steps if kind == "dpmpp" else steps + 1
+            log(f"[trajectory] {config}, B={b} x N={N_POINTS}, G={G}, {kind} x {steps} steps, "
+                f"bf16 kernels, return_trajectory")
+            for i in range(calls):
+                times: dict = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with split_times(times):
+                    out = ldm_generate(vae, ddm, diffusion, pc_n, G, gen,
+                                       num_inference_steps=steps, sampler=kind, meta=meta,
+                                       return_trajectory=True)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rest = wall - times["sampler"] - times["decode"]
+                log(f"  call {i + 1}: wall {wall:.3f} s = sampler {times['sampler']:.3f} s + "
+                    f"decode {times['decode']:.3f} s ({1 + min(50, n_states)} decodes) + "
+                    f"rest {rest:.3f} s" + (" (first call: set-up included)" if i == 0 else ""))
+                traj, A = out["latent_trajectory"], out["all_diffusion_grasps"]
+                if tuple(traj.shape) != (n_states, b * G, 1, L):
+                    raise AssertionError(f"latent_trajectory shape {tuple(traj.shape)}")
+                if tuple(A.shape) != (min(50, n_states), b, G, 4, 4):
+                    raise AssertionError(f"all_diffusion_grasps shape {tuple(A.shape)}")
+                check_grasps(out, b, G)
+                check_poses(A, f"all {A.shape[0]} decoded states")
+                run.expect_more(f"trajectory {config} {kind}", config,
+                                **per_trajectory_call(kind, steps))
+
+
 def _post(url: str, body: dict, results: list, i: int) -> None:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -713,16 +979,18 @@ def reference_phase(run: Run, dev) -> None:
         (s, True, n, 80.0 * x_unit, churn_noise if s == "churn" else None)
         for s, n in EDM_STEPS.items()
     ]
-    for sampler, edm, steps, x_T, noise in runs:
-        log(f"[reference] fp32 ldm_generate B={b}, G={g}, {sampler} x {steps} steps: "
-            "card vs CPU")
+    runs.append(("ddim", False, STEPS, x_unit, None, True))
+    for sampler, edm, steps, x_T, noise, *traj in runs:
+        log(f"[reference] fp32 ldm_generate B={b}, G={g}, {sampler} x {steps} steps"
+            + (", return_trajectory" if traj else "") + ": card vs CPU")
         vae, ddm, diffusion = build_models("float32", "cpu", elucidated=edm)
-        kw = dict(num_inference_steps=steps, sampler=sampler)
+        kw = dict(num_inference_steps=steps, sampler=sampler, return_trajectory=bool(traj))
         want = ldm_generate(vae, ddm, diffusion, pc_n, g, meta=meta, x_T=x_T, noise=noise, **kw)
         vae_d, ddm_d = copy.deepcopy(vae).to(dev), copy.deepcopy(ddm).to(dev)
         got = ldm_generate(vae_d, ddm_d, diffusion, pc_n.to(dev), g, meta=meta_d,
                            x_T=x_T.to(dev), noise=None if noise is None else noise.to(dev), **kw)
-        for k in ("grasps", "grasp_tmrp", "confidence"):
+        keys = ("grasps", "grasp_tmrp", "confidence")
+        for k in keys + (("latent_trajectory", "all_diffusion_grasps") if traj else ()):
             err = (got[k].cpu() - want[k]).abs().max().item()
             log(f"  {k}: max_abs_err {err:.3e} tol {TOL_E2E:.0e}")
             if not err <= TOL_E2E:
@@ -752,6 +1020,9 @@ def kernels_line(run: Run) -> dict:
             "plain_ms_fp32": fp.get("plain_ms"), "bound_ms_fp32": fp.get("bound_ms"),
             "bound_by_fp32": fp.get("bound_by"),
             **{k: v for k, v in bf.items() if k.startswith("bf16_vs_fp32_plain")},
+            **({"chain_vs_whole": bf["chain_vs_whole"],
+                "chain_vs_whole_fp32": fp.get("chain_vs_whole")} if "chain_vs_whole" in bf
+               else {}),
         })
     return {"kernels": entries}
 
@@ -783,6 +1054,10 @@ def main() -> int:
     run.phase("kernels EDM fpc", edm_kernel_phase, fpc_edm[1], fpc_edm[2], dev)
     ppc_sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
     run.phase("kernels ppc", ppc_kernel_phase, ppc_edm[1], ppc_edm[2], ppc_sched, dev)
+    run.phase("step kernels fpc", step_kernel_phase, "fpc", fpc_edm[1], fpc_edm[2],
+              ddim_models[2].schedule, dev, BG)
+    run.phase("step kernels ppc", step_kernel_phase, "ppc", ppc_edm[1], ppc_edm[2],
+              ppc_sched, dev, PPC_BG)
 
     run.reset_counts("ddim")
     run.phase("generation ddim", generation_phase, ddim_models, ppc_ddim, dev)
@@ -795,6 +1070,11 @@ def main() -> int:
     run.phase("server EDM", server_phase, fpc_edm, dev, EDM_STEPS["dpmpp"], "dpmpp",
               "dpmpp_sampler_kernel")
     log(f"[main path EDM] launches: {counts()}")
+
+    run.reset_counts("trajectory")
+    run.phase("trajectories", trajectory_phase,
+              dict(ddim=ddim_models, edm=fpc_edm), dict(ddim=ppc_ddim, edm=ppc_edm), dev)
+    log(f"[main path trajectory] launches: {counts()}")
     for name, config in run.records:
         n = launches_of(run, name, config)
         log(f"  {name} at {config}: {n}")

@@ -57,6 +57,20 @@ _SOURCES = {
         "gl_churn_sample": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P],
     },
+    "step_samplers.cu": {
+        # dtype, x, embin, trow, coef, noise, w, net, out, BG, L, E, Ce, G, cmax, clip,
+        # clip_range, stream
+        "gl_ddim_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         ctypes.c_float, _P],
+        # dtype, x, old, embin, trow, coef, w, net, x_new, den, BG, L, E, Ce, G, cmax,
+        # clamp, stream
+        "gl_dpmpp_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P],
+        # dtype, x, noise, embin, trowA, trowB, coefA, coefB, w, net, out, BG, L, E, Ce,
+        # G, cmax, clamp, stream
+        "gl_churn_step": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                          _I, _I, _P],
+    },
 }
 
 

@@ -10,8 +10,9 @@ them as one kernel launch instead (:mod:`..models.cuda_sampler`).
 torch cannot reproduce ``jax.random``, so the starting latents ``x_T``
 (already scaled by sigma_max) and the churn sampler's per-step unit
 normals are explicit tensors; when they are not given they are drawn from
-the caller's ``torch.Generator``. Guidance and trajectories are not ported
-yet and raise; the training loss waits for the training slice.
+the caller's ``torch.Generator``. With ``return_trajectory`` each sampler
+also returns its states as the JAX package's does. Guidance is not ported
+yet and raises; the training loss waits for the training slice.
 """
 
 from __future__ import annotations
@@ -107,9 +108,9 @@ class ElucidatedDiffusion:
         return sigmas[0].item() * torch.randn(shape, generator=generator, device=device)
 
     @staticmethod
-    def _unported(guidance_fn, return_trajectory) -> None:
-        if guidance_fn is not None or return_trajectory:
-            raise NotImplementedError("EDM guidance and trajectories are not ported yet")
+    def _unported(guidance_fn) -> None:
+        if guidance_fn is not None:
+            raise NotImplementedError("EDM guidance is not ported yet")
 
     @torch.no_grad()
     def sample_churn(
@@ -118,11 +119,13 @@ class ElucidatedDiffusion:
         x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None, device=None,
         return_trajectory: bool = False, guidance_fn=None,
-    ) -> torch.Tensor:
+    ):
         """Stochastic churn sampler with the Heun 2nd-order correction
         (Algorithm 2). ``noise [N, B, 1, D]`` holds each step's unit normal
-        (scaled by ``S_noise`` here)."""
-        self._unported(guidance_fn, return_trajectory)
+        (scaled by ``S_noise`` here). Returns ``x_0``; with
+        ``return_trajectory`` the pair ``(x_0, trajectory [N + 1, B, 1,
+        D])``, x_T first."""
+        self._unported(guidance_fn)
         N = num_sample_steps or self.num_sample_steps
         sigmas = self.sample_schedule(N)
         gammas = self.churn_gammas(sigmas)
@@ -133,6 +136,7 @@ class ElucidatedDiffusion:
         def full(s: float) -> torch.Tensor:
             return torch.full((x.shape[0],), s, dtype=torch.float32, device=x.device)
 
+        traj = [x]
         for i in range(N):
             sigma, sigma_next = sigmas[i].item(), sigmas[i + 1].item()
             eps = self.S_noise * noise[i].reshape(x.shape).float()
@@ -143,12 +147,13 @@ class ElucidatedDiffusion:
             x_euler = x_hat + (sigma_next - sigma_hat) * d
             if sigma_next == 0.0:  # the 2nd-order correction is skipped
                 x = x_euler
-                continue
-            denoised_next = self.preconditioned(
-                denoise_fn, x_euler, full(sigma_next), z_cond, clamp)
-            d_prime = (x_euler - denoised_next) / sigma_next
-            x = x_hat + 0.5 * (sigma_next - sigma_hat) * (d + d_prime)
-        return x
+            else:
+                denoised_next = self.preconditioned(
+                    denoise_fn, x_euler, full(sigma_next), z_cond, clamp)
+                d_prime = (x_euler - denoised_next) / sigma_next
+                x = x_hat + 0.5 * (sigma_next - sigma_hat) * (d + d_prime)
+            traj.append(x)
+        return (x, torch.stack(traj)) if return_trajectory else x
 
     @torch.no_grad()
     def sample_dpmpp(
@@ -156,9 +161,11 @@ class ElucidatedDiffusion:
         num_sample_steps: Optional[int] = None, clamp: bool = False,
         x_T: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
         device=None, return_trajectory: bool = False, guidance_fn=None,
-    ) -> torch.Tensor:
-        """DPM-Solver++(2M) (2211.01095), deterministic after ``x_T``."""
-        self._unported(guidance_fn, return_trajectory)
+    ):
+        """DPM-Solver++(2M) (2211.01095), deterministic after ``x_T``.
+        Returns ``x_0``; with ``return_trajectory`` the pair ``(x_0,
+        trajectory [N, B, 1, D])``, the state after each step (no x_T)."""
+        self._unported(guidance_fn)
         N = num_sample_steps or self.num_sample_steps
         sigmas = self.sample_schedule(N)
         x = self._start(sigmas, batch_size, x_T, generator, device)
@@ -166,7 +173,7 @@ class ElucidatedDiffusion:
         def t_fn(s: float) -> float:
             return -math.log(max(s, 1e-20))
 
-        old = None
+        old, traj = None, []
         for i in range(N):
             sigma, sigma_next = sigmas[i].item(), sigmas[i + 1].item()
             sig_b = torch.full((x.shape[0],), sigma, dtype=torch.float32, device=x.device)
@@ -182,4 +189,5 @@ class ElucidatedDiffusion:
             ratio = max(sigma_next, 1e-20) / max(sigma, 1e-20)
             x = ratio * x - math.expm1(-h) * denoised_d
             old = denoised
-        return x
+            traj.append(x)
+        return (x, torch.stack(traj)) if return_trajectory else x

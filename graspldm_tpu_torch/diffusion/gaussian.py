@@ -38,12 +38,17 @@ class GaussianDiffusion1D:
         noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
         device=None,
-    ) -> torch.Tensor:
+        return_trajectory: bool = False,
+    ):
         """Reverse diffusion from ``x_T`` (``[B, 1, D]``) to ``x_0``.
 
         ``noise`` is ``[len(grid), B, 1, D]`` (DDPM only): one draw per step
         of ``timestep_grid(S)``, which has more than S entries when S does
         not divide T; step ``s`` uses ``noise[s]``.
+
+        Returns ``x_0``; with ``return_trajectory`` the pair ``(x_0,
+        trajectory [len(grid) + 1, B, 1, D])``, x_T first, as the JAX
+        package's ``sample(return_trajectory=True)`` returns them.
         """
         if sampler not in ("ddpm", "ddim"):
             raise ValueError(f"Unknown sampler: {sampler}")
@@ -57,6 +62,7 @@ class GaussianDiffusion1D:
         if sampler == "ddpm" and noise is None:
             noise = torch.randn((len(ts),) + shape, generator=generator, device=x_T.device)
         x = x_T
+        traj = [x]
         for s, t in enumerate(ts):
             t_batch = torch.full((batch_size,), t, dtype=torch.int64, device=x.device)
             eps = denoise_fn(x, t_batch, z_cond)
@@ -66,4 +72,5 @@ class GaussianDiffusion1D:
                 x = self.schedule.ddpm_step(
                     x, eps, t, t - stride, noise[s], self.variance_type
                 )
-        return x
+            traj.append(x)
+        return (x, torch.stack(traj)) if return_trajectory else x

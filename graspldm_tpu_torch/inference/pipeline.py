@@ -6,11 +6,13 @@ latents (from N(0, I), or by reverse diffusion in one sampler-kernel
 launch: ``ddim_sampler_kernel`` for DDIM/DDPM, ``dpmpp_sampler_kernel`` or
 ``churn_sampler_kernel`` for EDM), decode them through the stage kernels,
 unnormalize, convert tmrp -> 4x4 transforms and sigmoid the success logit.
+With ``return_trajectory`` the sampler runs one per-step kernel launch per
+step instead and up to 50 of its states are decoded too.
 
 The kernels run wherever the tensors live: on a CUDA device the
 hand-written kernels launch, on the CPU their plain PyTorch versions run.
-Guidance, classifier-free guidance, class/region conditioning and
-trajectory decoding are not ported yet and raise.
+Guidance, classifier-free guidance and class/region conditioning are not
+ported yet and raise.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ __all__ = [
     "GenerationWeights",
     "pack_generation_weights",
     "decode_and_postprocess",
+    "trajectory_decode_indices",
     "vae_generate",
     "ldm_generate",
 ]
@@ -96,6 +99,23 @@ def decode_and_postprocess(
     return result
 
 
+def trajectory_decode_indices(n_states: int) -> torch.Tensor:
+    """Which of ``n_states`` trajectory states are decoded: ``num = min(50,
+    n)`` evenly spaced indices, ``floor(i * (n - 1) / (num - 1))``, the
+    JAX package's ``jnp.linspace(0, n - 1, num).astype(jnp.int32)``
+    (``pipeline.py:_finish_ldm``) in exact integer arithmetic.
+
+    Truncating a float32 linspace puts an index one too low wherever the
+    quotient is whole but its float32 value lands just below it: XLA's
+    float32 division on the CPU does so at some n (e.g. n = 42 gives index
+    2 for i = 3), IEEE float32 at others (n = 23). Integer arithmetic
+    equals JAX's indices at every n the samplers produce for the step
+    counts in use (100 DDIM / churn steps: n = 101; 32 DPM++: n = 32)."""
+    num = min(50, n_states)
+    i = torch.arange(num, dtype=torch.int64)
+    return i * (n_states - 1) // max(num - 1, 1)
+
+
 @torch.no_grad()
 def vae_generate(
     vae, pc: torch.Tensor, num_grasps: int, generator: Optional[torch.Generator] = None,
@@ -133,7 +153,8 @@ def ldm_generate(
     Runs on the device of ``pc`` and of the models (the caller puts them
     there).
 
-    The whole sampler runs in one kernel launch. With a
+    Without ``return_trajectory`` the whole sampler runs in one kernel
+    launch. With a
     ``GaussianDiffusion1D``: ``ddim_sampler_kernel`` (``sampler`` "ddim" or
     "ddpm"). With an ``ElucidatedDiffusion``: ``sampler == "dpmpp"`` runs
     DPM-Solver++(2M) (``dpmpp_sampler_kernel``), any other value the
@@ -141,9 +162,18 @@ def ldm_generate(
     package routes them. ``x_T [B*G, latent]`` (EDM: at sigma_max scale)
     and the DDPM / churn ``noise [S, B*G, latent]`` (unit normals) default
     to draws from ``generator``; tests inject JAX's.
+
+    With ``return_trajectory`` the sampler launches its per-step kernel
+    once per step (``ddim_step_kernel``, ``dpmpp_step_kernel`` or
+    ``churn_step_kernel``), and the result also holds, as the JAX package's
+    does (``pipeline.py:_finish_ldm``), ``latent_trajectory`` (DDIM/DDPM
+    ``[len(grid) + 1, B*G, 1, latent]`` and churn ``[N + 1, ...]`` with x_T
+    first, DPM++ ``[N, ...]`` without it) and ``all_diffusion_grasps
+    [S'', B, G, 4, 4]``: the states at :func:`trajectory_decode_indices`,
+    decoded one at a time as x_0 is.
     """
     unported = {
-        "return_trajectory": return_trajectory, "cls_cond": cls_cond is not None,
+        "cls_cond": cls_cond is not None,
         "region_points": region_points is not None, "cfg_scale": cfg_scale is not None,
         "guidance_scale": guidance_scale is not None, "guidance_fn": guidance_fn is not None,
     }
@@ -165,16 +195,26 @@ def ldm_generate(
             x_T = diffusion.sample_schedule(num_inference_steps)[0].item() * x_T
     input_emb = compute_input_emb(weights.denoiser.aux, z_pc_rep)
     if edm and sampler == "dpmpp":
-        x0 = fused_sample_dpmpp(weights.denoiser, diffusion, input_emb, x_T,
-                                num_sample_steps=num_inference_steps)
+        res = fused_sample_dpmpp(weights.denoiser, diffusion, input_emb, x_T,
+                                 num_sample_steps=num_inference_steps,
+                                 return_trajectory=return_trajectory)
     elif edm:
-        x0 = fused_sample_churn(weights.denoiser, diffusion, input_emb, x_T,
-                                num_sample_steps=num_inference_steps, noise=noise,
-                                generator=generator)
+        res = fused_sample_churn(weights.denoiser, diffusion, input_emb, x_T,
+                                 num_sample_steps=num_inference_steps, noise=noise,
+                                 generator=generator, return_trajectory=return_trajectory)
     else:
-        x0 = fused_sample(
+        res = fused_sample(
             weights.denoiser, diffusion.schedule, input_emb, x_T,
             num_inference_steps=num_inference_steps, sampler=sampler,
             variance_type=diffusion.variance_type, noise=noise, generator=generator,
+            return_trajectory=return_trajectory,
         )
-    return decode_and_postprocess(weights, x0[:, 0, :], z_pc_rep, num_grasps, meta)
+    x0, traj = res if return_trajectory else (res, None)
+    result = decode_and_postprocess(weights, x0[:, 0, :], z_pc_rep, num_grasps, meta)
+    if return_trajectory:
+        result["latent_trajectory"] = traj
+        result["all_diffusion_grasps"] = torch.stack([
+            decode_and_postprocess(weights, traj[i, :, 0, :], z_pc_rep, num_grasps, meta)["grasps"]
+            for i in trajectory_decode_indices(traj.shape[0]).tolist()
+        ])
+    return result

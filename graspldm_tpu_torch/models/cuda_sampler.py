@@ -1,9 +1,10 @@
-"""Whole-trajectory sampler kernels: DDIM/DDPM and the two EDM samplers.
+"""Sampler kernels: DDIM/DDPM and the two EDM samplers.
 
-Counterpart of :mod:`graspldm_tpu.models.pallas_sampler`'s whole-scan
-branches. Each kernel runs every step of one sampler for a block of rows in
-one launch, with the fp32 carry, the conditioning embedding and all
-activations resident in shared memory:
+Counterpart of :mod:`graspldm_tpu.models.pallas_sampler`. Without a
+trajectory, each sampler runs as one whole-trajectory kernel (the JAX
+package's whole-scan branch): every step for a block of rows in one launch,
+with the fp32 carry, the conditioning embedding and all activations
+resident in shared memory:
 
 * ``ddim_sampler_kernel`` replaces ``pallas_sampler.py:_mega_kernel``
   (DDIM / DDPM);
@@ -13,7 +14,19 @@ activations resident in shared memory:
   (EDM stochastic churn with the Heun correction, two network evaluations
   per step).
 
-All three share one step body (``net_step`` in ``csrc/sampler_body.cuh``),
+With ``return_trajectory`` (the JAX package's per-step scan), the host
+loops over the steps and launches one per-step kernel each
+(``csrc/step_samplers.cu``), which writes its state straight into the
+preallocated trajectory:
+
+* ``ddim_step_kernel`` replaces ``_full_step_kernel`` and the chain
+  ``_stage0_kernel`` -> ``_mid_stage_kernel`` -> ``_final_step_kernel``;
+* ``dpmpp_step_kernel`` replaces ``_full_dpmpp_kernel`` and the chain
+  ``_stage0_dpmpp_kernel`` -> ``_mid_stage_kernel`` -> ``_final_dpmpp_kernel``;
+* ``churn_step_kernel`` replaces ``_full_churn_kernel`` and the two chains
+  ending in ``_final_churn_a_kernel`` and ``_final_churn_b_kernel``.
+
+All six share one step body (``net_step`` in ``csrc/sampler_body.cuh``),
 built from the same device functions as the stage kernels
 (``csrc/resnet1d_blocks.cuh``). Rows need not fill the last block: the
 kernels mask the ragged edge themselves (the JAX sampler pads rows to the
@@ -25,9 +38,11 @@ channels, and the per-step coefficient rows. The samplers that draw noise
 (DDPM, churn) take it as an explicit ``[S, BG, L]`` tensor, so tests can
 feed JAX's draws.
 
-Beside each kernel is its plain PyTorch version (``sampler_plain``,
-``dpmpp_sampler_plain``, ``churn_sampler_plain``) with the same rounding
-points; a wrapper runs it for CPU tensors and launches the kernel (or
+Beside each kernel is its plain PyTorch version with the same rounding
+points: one step each (``ddim_step_plain``, ``dpmpp_step_plain``,
+``churn_step_plain``), and the whole trajectories (``sampler_plain``,
+``dpmpp_sampler_plain``, ``churn_sampler_plain``) as loops over them. A
+wrapper runs the plain version for CPU tensors and launches the kernel (or
 raises) for CUDA tensors.
 """
 
@@ -58,15 +73,19 @@ from .stacked_denoiser import compute_time_emb
 
 __all__ = [
     "SAMPLER_KERNEL", "fused_sample", "sampler_tables", "sampler_plain", "sampler_apply",
+    "DDIM_STEP_KERNEL", "ddim_step_plain", "ddim_step_apply",
     "DPMPP_KERNEL", "fused_sample_dpmpp", "dpmpp_tables", "dpmpp_sampler_plain",
-    "dpmpp_sampler_apply",
+    "dpmpp_sampler_apply", "DPMPP_STEP_KERNEL", "dpmpp_step_plain", "dpmpp_step_apply",
     "CHURN_KERNEL", "fused_sample_churn", "churn_tables", "churn_sampler_plain",
-    "churn_sampler_apply",
+    "churn_sampler_apply", "CHURN_STEP_KERNEL", "churn_step_plain", "churn_step_apply",
 ]
 
 SAMPLER_KERNEL = KernelCounter("ddim_sampler_kernel")
 DPMPP_KERNEL = KernelCounter("dpmpp_sampler_kernel")
 CHURN_KERNEL = KernelCounter("churn_sampler_kernel")
+DDIM_STEP_KERNEL = KernelCounter("ddim_step_kernel")
+DPMPP_STEP_KERNEL = KernelCounter("dpmpp_step_kernel")
+CHURN_STEP_KERNEL = KernelCounter("churn_step_kernel")
 
 
 def _step_coeffs(schedule: DiffusionSchedule, ts: torch.Tensor, prev: torch.Tensor,
@@ -114,20 +133,28 @@ def _net_plain(w: PackedNet, x_in: torch.Tensor, embin, trow) -> torch.Tensor:
     return _final_core(w, h, esum)
 
 
+def ddim_step_plain(w: PackedNet, x, embin, trow, coef, noise_s, clip: bool,
+                    clip_range: float) -> torch.Tensor:
+    """Plain version of ``ddim_step_kernel``: one DDIM (``noise_s`` None) or
+    DDPM step of ``x [BG, L]`` (fp32) with time row ``trow [Ce*E]`` and
+    coefficient row ``coef [8]``; same rounding points."""
+    eps = _net_plain(w, x, embin, trow)
+    x0 = coef[0] * x - coef[1] * eps
+    if clip:
+        x0 = x0.clamp(-clip_range, clip_range)
+    if noise_s is None:
+        return coef[2] * x + coef[3] * x0
+    return coef[2] * x0 + coef[3] * x + coef[4] * noise_s
+
+
 def sampler_plain(w: PackedNet, x_T, embin, trows, coefs, noise, clip: bool,
                   clip_range: float) -> torch.Tensor:
-    """Plain version of ``ddim_sampler_kernel``; same rounding points."""
+    """Plain version of ``ddim_sampler_kernel``: every step of
+    :func:`ddim_step_plain`."""
     x = x_T.float().clone()
     for s in range(coefs.shape[0]):
-        eps = _net_plain(w, x, embin, trows[s])
-        c = coefs[s]
-        x0 = c[0] * x - c[1] * eps
-        if clip:
-            x0 = x0.clamp(-clip_range, clip_range)
-        if noise is None:
-            x = c[2] * x + c[3] * x0
-        else:
-            x = c[2] * x0 + c[3] * x + c[4] * noise[s]
+        x = ddim_step_plain(w, x, embin, trows[s], coefs[s],
+                            None if noise is None else noise[s], clip, clip_range)
     return x
 
 
@@ -152,6 +179,27 @@ def _check_tables(w: PackedNet, x_T, embin, S, **rows) -> None:
     _check("embin", embin, (BG, CeE), f32, w.device)
     for name, t in rows.items():
         _check(name, t, (S, 8 if name.startswith("coef") else CeE), f32, w.device)
+
+
+def _check_step(w: PackedNet, x, embin, states: dict, **rows) -> None:
+    """Operand checks of a per-step wrapper: ``x [BG, L]``, ``embin``, the
+    other ``[BG, L]`` inputs in ``states`` (name -> tensor or None), each
+    time row ``[Ce*E]`` and each coefficient row ``[8]`` of one step, all
+    float32 on the weights' device."""
+    _check_tables(w, x, embin, 1, **{k: v[None] for k, v in rows.items()})
+    for name, t in states.items():
+        if t is not None:
+            _check(name, t, tuple(x.shape), torch.float32, w.device)
+
+
+def _out(out: Optional[torch.Tensor], like: torch.Tensor, check: bool) -> torch.Tensor:
+    """The step's output buffer: ``out`` (a preallocated ``[BG, L]`` fp32
+    slot, e.g. a row of the trajectory) or a new one."""
+    if out is None:
+        return torch.empty_like(like, dtype=torch.float32)
+    if check:
+        _check("out", out, tuple(like.shape), torch.float32, like.device)
+    return out
 
 
 def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
@@ -184,6 +232,41 @@ def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
     return out
 
 
+def ddim_step_apply(w: PackedNet, x, embin, trow, coef, noise_s=None, clip=True,
+                    clip_range=1.0, out=None, check=True) -> torch.Tensor:
+    """One DDIM / DDPM step ``x [BG, L]`` (fp32) -> ``[BG, L]`` (fp32),
+    written into ``out`` when given.
+
+    ``trow [Ce*E]`` and ``coef [8]`` are row s of :func:`sampler_tables`'
+    ``trows`` and ``coefs``, ``noise_s [BG, L]`` step s's DDPM noise (None
+    for DDIM). ``check=False`` skips the operand checks: a trajectory
+    checks its tables once, not at every step.
+    """
+    if not _on_cuda(x):
+        res = ddim_step_plain(w, x, embin, trow, coef, noise_s, clip, clip_range)
+        return res if out is None else out.copy_(res)
+    from ..cuda_build import load_library
+
+    if check:
+        _check_step(w, x, embin, dict(noise_s=noise_s), trow=trow, coef=coef)
+    out = _out(out, x, check)
+    d = w.dims
+    BG, L = x.shape
+    rc = load_library().gl_ddim_step(
+        DTYPE_CODE[w.dtype], _ptr(x), _ptr(embin), _ptr(trow), _ptr(coef), _ptr(noise_s),
+        _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim, d.cond_channels, d.groups,
+        _cmax(w), int(bool(clip)), float(clip_range), _stream(x),
+    )
+    _raise_on(rc, "ddim_step_kernel")
+    DDIM_STEP_KERNEL.launches += 1
+    return out
+
+
+def _trajectory(x_T: torch.Tensor, n: int) -> torch.Tensor:
+    """An empty ``[n, BG, L]`` float32 trajectory beside ``x_T``."""
+    return torch.empty((n,) + tuple(x_T.shape), dtype=torch.float32, device=x_T.device)
+
+
 def sampler_tables(w: PackedNet, schedule: DiffusionSchedule, input_emb: torch.Tensor,
                    num_inference_steps: int, sampler: str, variance_type: str):
     """The kernel's float32 operands besides ``x_T`` and the noise:
@@ -208,8 +291,11 @@ def fused_sample(
     variance_type: str = "fixed_large",
     noise: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
-    """Reverse diffusion in one kernel launch.
+    return_trajectory: bool = False,
+):
+    """Reverse diffusion: one whole-trajectory kernel launch, or with
+    ``return_trajectory`` one ``ddim_step_kernel`` launch per step of
+    ``schedule.timestep_grid``.
 
     Args:
         input_emb: ``[BG, Ce, emb]`` hoisted conditioning embedding
@@ -218,7 +304,9 @@ def fused_sample(
         noise: ``[len(grid), BG, L]`` DDPM noise, one draw per step of
             ``schedule.timestep_grid``; drawn from ``generator`` if None.
     Returns:
-        ``x_0 [BG, 1, L]`` float32.
+        ``x_0 [BG, 1, L]`` float32; with ``return_trajectory`` the pair
+        ``(x_0, trajectory [len(grid) + 1, BG, 1, L])``, x_T first, as
+        ``pallas_sampler.py:fused_sample`` returns them.
     """
     if sampler not in ("ddim", "ddpm"):
         raise ValueError(f"Unknown sampler: {sampler}")
@@ -228,12 +316,23 @@ def fused_sample(
     if sampler == "ddpm" and noise is None:
         noise = torch.randn((coefs.shape[0],) + tuple(x_T.shape), generator=generator,
                             device=device)
-    x0 = sampler_apply(
-        w, x_T.float().contiguous(), embin, trows, coefs,
-        noise.float().contiguous() if sampler == "ddpm" else None,
-        schedule.clip_sample, schedule.clip_sample_range,
-    )
-    return x0[:, None, :]
+    x_T = x_T.float().contiguous()
+    noise = noise.float().contiguous() if sampler == "ddpm" else None
+    clip = (schedule.clip_sample, schedule.clip_sample_range)
+    if not return_trajectory:
+        return sampler_apply(w, x_T, embin, trows, coefs, noise, *clip)[:, None, :]
+    n = coefs.shape[0]
+    if _on_cuda(x_T):
+        _check_tables(w, x_T, embin, n, trows=trows, coefs=coefs)
+        if noise is not None:
+            _check("noise", noise, (n,) + tuple(x_T.shape), torch.float32, w.device)
+    traj = _trajectory(x_T, n + 1)
+    traj[0] = x_T
+    for s in range(n):
+        ddim_step_apply(w, traj[s], embin, trows[s], coefs[s],
+                        None if noise is None else noise[s], *clip, out=traj[s + 1],
+                        check=False)
+    return traj[-1][:, None, :], traj[:, :, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -274,19 +373,25 @@ def dpmpp_tables(w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor,
     return embin, trows, coefs
 
 
+def dpmpp_step_plain(w: PackedNet, x, old, embin, trow, coef, clamp: bool):
+    """Plain version of ``dpmpp_step_kernel``: one DPM-Solver++(2M) step of
+    ``x [BG, L]`` (fp32) with the previous denoised estimate ``old`` ->
+    ``(x_new, denoised)``; same rounding points (the network input ``c_in *
+    x`` is rounded to the compute dtype)."""
+    net = _net_plain(w, coef[0] * x, embin, trow)
+    den = coef[1] * x + coef[2] * net
+    if clamp:
+        den = den.clamp(-1.0, 1.0)
+    return coef[5] * x - coef[6] * (coef[3] * den + coef[4] * old), den
+
+
 def dpmpp_sampler_plain(w: PackedNet, x_T, embin, trows, coefs, clamp: bool) -> torch.Tensor:
-    """Plain version of ``dpmpp_sampler_kernel``; same rounding points (the
-    network input ``c_in * x`` is rounded to the compute dtype)."""
+    """Plain version of ``dpmpp_sampler_kernel``: every step of
+    :func:`dpmpp_step_plain`, ``old`` zeros at the first."""
     x = x_T.float().clone()
     old = torch.zeros_like(x)
     for s in range(coefs.shape[0]):
-        c = coefs[s]
-        net = _net_plain(w, c[0] * x, embin, trows[s])
-        den = c[1] * x + c[2] * net
-        if clamp:
-            den = den.clamp(-1.0, 1.0)
-        x = c[5] * x - c[6] * (c[3] * den + c[4] * old)
-        old = den
+        x, old = dpmpp_step_plain(w, x, old, embin, trows[s], coefs[s], clamp)
     return x
 
 
@@ -312,22 +417,66 @@ def dpmpp_sampler_apply(w: PackedNet, x_T, embin, trows, coefs, clamp=False) -> 
     return out
 
 
+def dpmpp_step_apply(w: PackedNet, x, old, embin, trow, coef, clamp=False, out=None,
+                     den_out=None, check=True):
+    """One DPM-Solver++(2M) step of ``x [BG, L]`` (fp32) with the previous
+    denoised estimate ``old [BG, L]`` -> ``(x_new, denoised)``, written into
+    ``out`` / ``den_out`` when given. ``trow`` / ``coef`` are row s of
+    :func:`dpmpp_tables`' tables; ``check`` as in :func:`ddim_step_apply`."""
+    if not _on_cuda(x):
+        x_new, den = dpmpp_step_plain(w, x, old, embin, trow, coef, clamp)
+        return (x_new if out is None else out.copy_(x_new),
+                den if den_out is None else den_out.copy_(den))
+    from ..cuda_build import load_library
+
+    if check:
+        _check_step(w, x, embin, dict(old=old), trow=trow, coef=coef)
+    out, den_out = _out(out, x, check), _out(den_out, x, check)
+    d = w.dims
+    BG, L = x.shape
+    rc = load_library().gl_dpmpp_step(
+        DTYPE_CODE[w.dtype], _ptr(x), _ptr(old), _ptr(embin), _ptr(trow), _ptr(coef),
+        _ptr(w.flat), _ptr(w.layout), _ptr(out), _ptr(den_out), BG, L, d.emb_dim,
+        d.cond_channels, d.groups, _cmax(w), int(bool(clamp)), _stream(x),
+    )
+    _raise_on(rc, "dpmpp_step_kernel")
+    DPMPP_STEP_KERNEL.launches += 1
+    return out, den_out
+
+
 def fused_sample_dpmpp(
     w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor, x_T: torch.Tensor,
     num_sample_steps: Optional[int] = None, clamp: bool = False,
-) -> torch.Tensor:
-    """EDM DPM-Solver++(2M) in one kernel launch.
+    return_trajectory: bool = False,
+):
+    """EDM DPM-Solver++(2M): one whole-trajectory kernel launch, or with
+    ``return_trajectory`` one ``dpmpp_step_kernel`` launch per step.
 
     Args:
         input_emb: ``[BG, Ce, emb]`` hoisted conditioning embedding.
         x_T: ``[BG, L]`` starting latents at sigma_max scale (float32).
     Returns:
-        ``x_0 [BG, 1, L]`` float32.
+        ``x_0 [BG, 1, L]`` float32; with ``return_trajectory`` the pair
+        ``(x_0, trajectory [N, BG, 1, L])``, the state after each step
+        (no x_T), as ``pallas_sampler.py:fused_sample_dpmpp`` returns them.
     """
     N = num_sample_steps or ed.num_sample_steps
     embin, trows, coefs = dpmpp_tables(w, ed, input_emb, N)
-    x0 = dpmpp_sampler_apply(w, x_T.float().contiguous(), embin, trows, coefs, clamp)
-    return x0[:, None, :]
+    x_T = x_T.float().contiguous()
+    if not return_trajectory:
+        return dpmpp_sampler_apply(w, x_T, embin, trows, coefs, clamp)[:, None, :]
+    if _on_cuda(x_T):
+        _check_tables(w, x_T, embin, N, trows=trows, coefs=coefs)
+    traj = _trajectory(x_T, N)
+    # the denoised estimates, in turns: step s reads dens[s % 2] (zeros at
+    # the first step) and writes the other
+    dens = torch.zeros((2,) + tuple(x_T.shape), dtype=torch.float32, device=x_T.device)
+    x = x_T
+    for s in range(N):
+        dpmpp_step_apply(w, x, dens[s % 2], embin, trows[s], coefs[s], clamp, out=traj[s],
+                         den_out=dens[(s + 1) % 2], check=False)
+        x = traj[s]
+    return traj[-1][:, None, :], traj[:, :, None, :]
 
 
 # ---------------------------------------------------------------------------
@@ -367,24 +516,33 @@ def churn_tables(w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor,
             coefB.float().to(device))
 
 
+def churn_step_plain(w: PackedNet, x, embin, trowA, trowB, a, c, noise_s,
+                     clamp: bool) -> torch.Tensor:
+    """Plain version of ``churn_step_kernel``: one churn step, both legs,
+    of ``x [BG, L]`` (fp32) with the coefficient rows ``a`` / ``c`` and the
+    unit normal ``noise_s [BG, L]``; same rounding points (the network
+    inputs ``cinA * x_hat`` and ``cinB * x_eul``)."""
+    x_hat = x + a[3] * noise_s
+    den = a[1] * x_hat + a[2] * _net_plain(w, a[0] * x_hat, embin, trowA)
+    if clamp:
+        den = den.clamp(-1.0, 1.0)
+    d = (x_hat - den) * a[5]
+    x_eul = x_hat + a[4] * d
+    den = c[1] * x_eul + c[2] * _net_plain(w, c[0] * x_eul, embin, trowB)
+    if clamp:
+        den = den.clamp(-1.0, 1.0)
+    d_prime = (x_eul - den) * c[5]
+    return c[6] * (x_hat + c[4] * (d + d_prime)) + (1.0 - c[6]) * x_eul
+
+
 def churn_sampler_plain(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, noise,
                         clamp: bool) -> torch.Tensor:
-    """Plain version of ``churn_sampler_kernel``; same rounding points (the
-    network inputs ``cinA * x_hat`` and ``cinB * x_eul``)."""
+    """Plain version of ``churn_sampler_kernel``: every step of
+    :func:`churn_step_plain`."""
     x = x_T.float().clone()
     for s in range(coefA.shape[0]):
-        a, c = coefA[s], coefB[s]
-        x_hat = x + a[3] * noise[s]
-        den = a[1] * x_hat + a[2] * _net_plain(w, a[0] * x_hat, embin, trowsA[s])
-        if clamp:
-            den = den.clamp(-1.0, 1.0)
-        d = (x_hat - den) * a[5]
-        x_eul = x_hat + a[4] * d
-        den = c[1] * x_eul + c[2] * _net_plain(w, c[0] * x_eul, embin, trowsB[s])
-        if clamp:
-            den = den.clamp(-1.0, 1.0)
-        d_prime = (x_eul - den) * c[5]
-        x = c[6] * (x_hat + c[4] * (d + d_prime)) + (1.0 - c[6]) * x_eul
+        x = churn_step_plain(w, x, embin, trowsA[s], trowsB[s], coefA[s], coefB[s], noise[s],
+                             clamp)
     return x
 
 
@@ -413,12 +571,43 @@ def churn_sampler_apply(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, 
     return out
 
 
+def churn_step_apply(w: PackedNet, x, embin, trowA, trowB, coefA, coefB, noise_s,
+                     clamp=False, out=None, check=True) -> torch.Tensor:
+    """One churn step (two network evaluations) of ``x [BG, L]`` (fp32) with
+    the unit normal ``noise_s [BG, L]`` -> ``[BG, L]`` (fp32), written into
+    ``out`` when given. ``trowA`` / ``trowB`` / ``coefA`` / ``coefB`` are
+    row s of :func:`churn_tables`' tables; ``check`` as in
+    :func:`ddim_step_apply`."""
+    if not _on_cuda(x):
+        res = churn_step_plain(w, x, embin, trowA, trowB, coefA, coefB, noise_s, clamp)
+        return res if out is None else out.copy_(res)
+    from ..cuda_build import load_library
+
+    if check:
+        _check_step(w, x, embin, dict(noise_s=noise_s), trowA=trowA, trowB=trowB,
+                    coefA=coefA, coefB=coefB)
+    out = _out(out, x, check)
+    d = w.dims
+    BG, L = x.shape
+    rc = load_library().gl_churn_step(
+        DTYPE_CODE[w.dtype], _ptr(x), _ptr(noise_s), _ptr(embin), _ptr(trowA), _ptr(trowB),
+        _ptr(coefA), _ptr(coefB), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim,
+        d.cond_channels, d.groups, _cmax(w), int(bool(clamp)), _stream(x),
+    )
+    _raise_on(rc, "churn_step_kernel")
+    CHURN_STEP_KERNEL.launches += 1
+    return out
+
+
 def fused_sample_churn(
     w: PackedNet, ed: ElucidatedDiffusion, input_emb: torch.Tensor, x_T: torch.Tensor,
     num_sample_steps: Optional[int] = None, clamp: bool = False,
     noise: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
-) -> torch.Tensor:
-    """EDM stochastic churn sampler (Heun) in one kernel launch.
+    return_trajectory: bool = False,
+):
+    """EDM stochastic churn sampler (Heun): one whole-trajectory kernel
+    launch, or with ``return_trajectory`` one ``churn_step_kernel`` launch
+    per step.
 
     Args:
         input_emb: ``[BG, Ce, emb]`` hoisted conditioning embedding.
@@ -426,12 +615,25 @@ def fused_sample_churn(
         noise: ``[N, BG, L]`` per-step unit normals; drawn from
             ``generator`` if None.
     Returns:
-        ``x_0 [BG, 1, L]`` float32.
+        ``x_0 [BG, 1, L]`` float32; with ``return_trajectory`` the pair
+        ``(x_0, trajectory [N + 1, BG, 1, L])``, x_T first, as
+        ``pallas_sampler.py:fused_sample_churn`` returns them.
     """
     N = num_sample_steps or ed.num_sample_steps
-    tables = churn_tables(w, ed, input_emb, N)
+    embin, trowsA, trowsB, coefA, coefB = churn_tables(w, ed, input_emb, N)
     if noise is None:
         noise = torch.randn((N,) + tuple(x_T.shape), generator=generator, device=x_T.device)
-    x0 = churn_sampler_apply(w, x_T.float().contiguous(), *tables,
-                             noise.float().contiguous(), clamp)
-    return x0[:, None, :]
+    x_T, noise = x_T.float().contiguous(), noise.float().contiguous()
+    if not return_trajectory:
+        return churn_sampler_apply(w, x_T, embin, trowsA, trowsB, coefA, coefB, noise,
+                                   clamp)[:, None, :]
+    if _on_cuda(x_T):
+        _check_tables(w, x_T, embin, N, trowsA=trowsA, trowsB=trowsB, coefA=coefA,
+                      coefB=coefB)
+        _check("noise", noise, (N,) + tuple(x_T.shape), torch.float32, w.device)
+    traj = _trajectory(x_T, N + 1)
+    traj[0] = x_T
+    for s in range(N):
+        churn_step_apply(w, traj[s], embin, trowsA[s], trowsB[s], coefA[s], coefB[s], noise[s],
+                         clamp, out=traj[s + 1], check=False)
+    return traj[-1][:, None, :], traj[:, :, None, :]

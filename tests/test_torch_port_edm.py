@@ -293,13 +293,14 @@ def test_edm_batch_generate_answers_a_batch(flag, sampler):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("option", [dict(return_trajectory=True), dict(guidance_scale=1.0)])
+@pytest.mark.parametrize("option", [dict(guidance_scale=1.0)])
 @pytest.mark.parametrize("sampler", ["dpmpp", "churn"])
 def test_edm_unported_options_raise(flag, sampler, option):
+    """EDM guidance is not ported yet (trajectories are:
+    ``tests/test_torch_port_trajectory.py``)."""
     with pytest.raises(NotImplementedError):
         ldm_generate(flag["vae"], flag["ddm"], flag["diff"], flag["pc_n"], G,
                      num_inference_steps=2, sampler=sampler, **option)
     fn = flag["diff"].sample_dpmpp if sampler == "dpmpp" else flag["diff"].sample_churn
-    kw = option if "return_trajectory" in option else dict(guidance_fn=lambda x: x)
     with pytest.raises(NotImplementedError):
-        fn(lambda x, t, z: x, 2, num_sample_steps=2, **kw)
+        fn(lambda x, t, z: x, 2, num_sample_steps=2, guidance_fn=lambda x: x)

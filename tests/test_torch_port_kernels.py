@@ -35,7 +35,8 @@ REPO = Path(__file__).resolve().parents[1]
 
 def _counts():
     return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL, cs.SAMPLER_KERNEL,
-                                      cs.DPMPP_KERNEL, cs.CHURN_KERNEL))
+                                      cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL,
+                                      cs.DPMPP_STEP_KERNEL, cs.CHURN_STEP_KERNEL))
 
 
 @pytest.fixture(scope="module")
@@ -116,6 +117,123 @@ def test_edm_wrappers_run_plain_versions_on_cpu(nets):
                                rtol=0, atol=0)
     assert got.shape == (BG, 4) and bool(torch.isfinite(got).all())
     assert _counts() == before
+
+
+SCHEDULE = dict(num_steps=1000, beta_start=5e-5, beta_end=1e-3)  # the flagship's
+
+
+def _trajectory_run(w, sampler: str, BG: int, n: int, gen: torch.Generator):
+    """One ``sampler`` trajectory of ``n`` steps (n divides T = 1000, so the
+    DDIM / DDPM grid has n steps) over BG rows of ``w``'s
+    denoiser, on seeded inputs: the trajectory path (``traj``, one step
+    wrapper per step, counted by ``counter``), the same steps' plain
+    versions chained (``traj_plain``, the states without the trailing
+    unit axis) and the whole-trajectory wrapper and plain version
+    (``whole``, ``whole_plain``)."""
+    dev, L = w.device, w.dims.seq_len
+    z_pc = torch.randn(BG, 3, w.dims.cond_dim, generator=gen, device=dev)
+    input_emb = compute_input_emb(w.aux, z_pc)
+    x_unit = torch.randn(BG, L, generator=gen, device=dev)
+    noise = torch.randn(n, BG, L, generator=gen, device=dev)
+    ed = ElucidatedDiffusion(n_dims=L)
+    if sampler in ("ddim", "ddpm"):
+        sched = DiffusionSchedule.create(**SCHEDULE)
+        nz = noise if sampler == "ddpm" else None
+        tb = cs.sampler_tables(w, sched, input_emb, n, sampler, "fixed_large")
+        embin, trows, coefs = tb
+
+        def plain():
+            states = [x_unit]
+            for s in range(n):
+                states.append(cs.ddim_step_plain(w, states[-1], embin, trows[s], coefs[s],
+                                                 None if nz is None else nz[s], True, 1.0))
+            return torch.stack(states)
+
+        return dict(
+            traj=lambda: cs.fused_sample(w, sched, input_emb, x_unit, n, sampler, noise=nz,
+                                         return_trajectory=True),
+            traj_plain=plain, counter=cs.DDIM_STEP_KERNEL,
+            whole=lambda: cs.sampler_apply(w, x_unit, *tb, nz),
+            whole_plain=lambda: cs.sampler_plain(w, x_unit, *tb, nz, True, 1.0))
+    x_T = 80.0 * x_unit
+    if sampler == "dpmpp":
+        tb = cs.dpmpp_tables(w, ed, input_emb, n)
+        embin, trows, coefs = tb
+
+        def plain():
+            x, old, states = x_T, torch.zeros_like(x_T), []
+            for s in range(n):
+                x, old = cs.dpmpp_step_plain(w, x, old, embin, trows[s], coefs[s], False)
+                states.append(x)
+            return torch.stack(states)
+
+        return dict(
+            traj=lambda: cs.fused_sample_dpmpp(w, ed, input_emb, x_T, n, return_trajectory=True),
+            traj_plain=plain, counter=cs.DPMPP_STEP_KERNEL,
+            whole=lambda: cs.dpmpp_sampler_apply(w, x_T, *tb),
+            whole_plain=lambda: cs.dpmpp_sampler_plain(w, x_T, *tb, False))
+    tb = cs.churn_tables(w, ed, input_emb, n)
+
+    def plain():
+        states = [x_T]
+        for s in range(n):
+            states.append(cs.churn_step_plain(w, states[-1], tb[0], tb[1][s], tb[2][s], tb[3][s],
+                                              tb[4][s], noise[s], False))
+        return torch.stack(states)
+
+    return dict(
+        traj=lambda: cs.fused_sample_churn(w, ed, input_emb, x_T, n, noise=noise,
+                                           return_trajectory=True),
+        traj_plain=plain, counter=cs.CHURN_STEP_KERNEL,
+        whole=lambda: cs.churn_sampler_apply(w, x_T, *tb, noise),
+        whole_plain=lambda: cs.churn_sampler_plain(w, x_T, *tb, noise, False))
+
+
+@pytest.mark.parametrize("sampler", ["ddim", "ddpm", "dpmpp", "churn"])
+def test_trajectory_loops_are_the_whole_trajectory_plain_versions_on_cpu(nets, sampler):
+    """On the CPU the trajectory path (one step wrapper per step, each
+    running its plain step) ends bitwise where the whole-trajectory plain
+    version does, which is now a loop over the same plain steps; no launch
+    is counted, and the trajectory has JAX's length."""
+    math, dims = nets["den"][4]
+    w = sc.PackedNet(math, dims)
+    n = 4
+    run = _trajectory_run(w, sampler, 5, n, torch.Generator().manual_seed(7))
+    before = _counts()
+    x0, traj = run["traj"]()
+    assert traj.shape == (n if sampler == "dpmpp" else n + 1, 5, 1, 4)
+    assert torch.equal(x0, traj[-1])
+    assert torch.equal(x0[:, 0], run["whole_plain"]())
+    assert torch.equal(x0[:, 0], run["whole"]())
+    assert torch.equal(traj[:, :, 0], run["traj_plain"]())
+    assert _counts() == before
+
+
+def test_step_wrappers_write_into_their_outputs_on_cpu(nets):
+    """Given ``out`` (a trajectory's row), a step wrapper writes its plain
+    step there and returns it."""
+    math, dims = nets["den"][4]
+    w = sc.PackedNet(math, dims)
+    g = torch.Generator().manual_seed(8)
+    ed, BG = ElucidatedDiffusion(n_dims=4), 5
+    input_emb = compute_input_emb(w.aux, torch.randn(BG, 3, 64, generator=g))
+    x = 80.0 * torch.randn(BG, 4, generator=g)
+    noise = torch.randn(BG, 4, generator=g)
+    embin, trowsA, trowsB, coefA, coefB = cs.churn_tables(w, ed, input_emb, 2)
+    out = torch.full((2, BG, 4), float("nan"))
+    got = cs.churn_step_apply(w, x, embin, trowsA[0], trowsB[0], coefA[0], coefB[0], noise,
+                              out=out[1])
+    assert got.data_ptr() == out[1].data_ptr()
+    want = cs.churn_step_plain(w, x, embin, trowsA[0], trowsB[0], coefA[0], coefB[0], noise,
+                               False)
+    assert torch.equal(out[1], want) and bool(torch.isnan(out[0]).all())
+    embin, trows, coefs = cs.dpmpp_tables(w, ed, input_emb, 2)
+    dens = torch.zeros(2, BG, 4)
+    x_new, den = cs.dpmpp_step_apply(w, x, dens[0], embin, trows[0], coefs[0], out=out[0],
+                                     den_out=dens[1])
+    want = cs.dpmpp_step_plain(w, x, dens[0], embin, trows[0], coefs[0], False)
+    assert torch.equal(out[0], want[0]) and torch.equal(dens[1], want[1])
+    assert x_new.data_ptr() == out[0].data_ptr() and den.data_ptr() == dens[1].data_ptr()
 
 
 def test_entry_points_refuse_to_build_on_the_cpu_unasked(monkeypatch):
@@ -287,6 +405,59 @@ def test_ddim_sampler_kernel_matches_plain_at_l16_on_card(cuda, nets, dtype):
     ref = cs.sampler_plain(w, x_T, embin, trows, coefs, None, True, 1.0)
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0, atol=2.0 ** -4)
     torch.testing.assert_close(got, ref, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_step_kernels_match_plain_steps_on_card(cuda, nets, dtype, L):
+    """ddim_step_kernel (DDIM and DDPM), dpmpp_step_kernel and
+    churn_step_kernel against their plain steps at L = 4 (fpc) and 16
+    (ppc), over a BG ragged at every block size, 2 chained steps, every
+    state held: float32 to 1e-4 of max(1, max|state|); bfloat16 to the
+    sampler limits of the tests above (DDIM absolute 2^-4 on clipped
+    states; EDM 2^-4 max and 2^-10.5 mean of max|state|, their 2-step
+    limits)."""
+    math, dims = nets["den"][L]
+    w = sc.PackedNet(math, dims, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    BG, n = 4101, 2
+    for sampler in ("ddim", "ddpm", "dpmpp", "churn"):
+        run = _trajectory_run(w, sampler, BG, n, g)
+        before = run["counter"].launches
+        x0, traj = run["traj"]()
+        assert run["counter"].launches == before + n
+        torch.cuda.synchronize()
+        ref = run["traj_plain"]()
+        assert traj.shape[:2] == ref.shape[:2]
+        for s in range(ref.shape[0]):
+            got, want = traj[s, :, 0], ref[s]
+            scale = max(1.0, want.abs().max().item())
+            msg = f"{run['counter'].name} {sampler}, state {s}"
+            if dtype == torch.float32:
+                torch.testing.assert_close(got, want, rtol=0, atol=1e-4 * scale, msg=msg)
+            elif sampler in ("ddim", "ddpm"):
+                torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -4, msg=msg)
+            else:
+                torch.testing.assert_close(got, want, rtol=0, atol=2.0 ** -4 * scale, msg=msg)
+                mean = (got - want).abs().mean().item()
+                assert mean <= 2.0 ** -10.5 * scale, (msg, mean)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["ddim", "ddpm", "dpmpp", "churn"])
+def test_step_launches_match_whole_trajectory_kernel_on_card(cuda, nets, sampler):
+    """S step-kernel launches end where the whole-trajectory kernel does:
+    float32, 5 steps, to 1e-4 of max(1, max|x_0|) (the same step body and
+    block plan; chip_smoke.py reports whether they are bitwise equal)."""
+    math, dims = nets["den"][4]
+    w = sc.PackedNet(math, dims, torch.float32, cuda)
+    run = _trajectory_run(w, sampler, 37, 5, torch.Generator(device=cuda).manual_seed(10))
+    x0, _ = run["traj"]()
+    whole = run["whole"]()
+    torch.cuda.synchronize()
+    scale = max(1.0, whole.abs().max().item())
+    torch.testing.assert_close(x0[:, 0], whole, rtol=0, atol=1e-4 * scale)
 
 
 def _seeded_ldm(device, seed):

@@ -115,7 +115,7 @@ def test_vae_generate_matches_jax(m):
 
 
 @pytest.mark.parametrize("option", [
-    dict(cfg_scale=2.0), dict(guidance_scale=1.0), dict(return_trajectory=True),
+    dict(cfg_scale=2.0), dict(guidance_scale=1.0),
     dict(cls_cond=torch.zeros(B * G)), dict(region_points=torch.zeros(B * G, 8, 3)),
 ])
 def test_unported_generation_options_raise(m, option):
