@@ -42,12 +42,31 @@ any phase fails (every phase runs; the failures are listed at the end):
    100; each twice) and the ppc flagships (one cloud x 1024 grasps, the
    same samplers), bf16 kernels: every decoded state is checked, and each
    call's wall time is split into sampler, decode and the rest;
-7. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn, and a
-   DDIM trajectory) on the card against the same calls on the CPU, where
-   every kernel wrapper runs its plain version.
+7. the guided and conditioned main path: the class-conditioned fpc
+   flagship (``denoiser_dtype="bfloat16"``: a float32 denoiser, as
+   conditioned denoisers always are, and a bf16 decoder), 4 clouds x 1024
+   grasps, DDIM 100, once unguided (``ddim_sampler_kernel`` with the class
+   embedding folded in) and once with ``cfg_scale=2`` (one ``full_kernel``
+   launch per step over the doubled batch); the unconditional bf16 fpc
+   flagship with success guidance (DDIM 100) and the EDM fpc flagship with
+   success guidance (DPM++ 32); the region-conditioned EDM ppc flagship
+   (128 region points) with ``cfg_scale=2`` (DPM++ 32, one cloud x 1024
+   grasps); each call twice, its wall time split into denoiser launches,
+   guidance VJPs and the rest; and 3 requests with a ``cls`` field to a
+   class-conditioned ``GraspServer``. Before the main paths,
+   ``full_kernel`` is held against ``full_plain`` and against the chain of
+   4 ``stage_kernel`` + ``final_kernel`` launches on the same operands, in
+   float32 and bfloat16, at fpc BG = 4096 and 8192 (CFG), ppc BG = 1024
+   and 2048 and a ragged BG = 1021, and once on a class-conditioned pack;
+   the three are timed at the main path's shapes;
+8. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn, a DDIM
+   trajectory; class CFG DDIM, success-guided DDPM, success-guided churn,
+   region CFG DPM++, and CFG with success guidance) on the card against
+   the same calls on the CPU, where every kernel wrapper runs its plain
+   version.
 
-The kernel launch counts are zeroed just before each main path (4, 5 and
-6) and read just after it; every call inside checks its exact counts, and
+The kernel launch counts are zeroed just before each main path (4 to 7)
+and read just after it; every call inside checks its exact counts, and
 each launch is booked to the configuration (fpc or ppc) of its call. The
 script prints its wall time, then the kernels' JSON record, then as its
 last line ``{"ok": true, "device": {...}}``.
@@ -80,6 +99,8 @@ PPC_STEPS = {"ddim": 100, "dpmpp": 32, "churn": 100}
 TRAJ_STEPS = {"ddim": 100, "dpmpp": 32, "churn": 100}  # the trajectory main path's
 STEP_CHAIN = 3  # chained steps each per-step kernel is held over against its plain steps
 RAGGED_BG = 1021  # ragged at every block size of the step kernels (16, 9, 4, 2 rows)
+FULL_BG = {"fpc": (BG, 2 * BG), "ppc": (PPC_BG, 2 * PPC_BG)}  # guided rows: plain and CFG
+CFG_SCALE, GUIDANCE_SCALE, REGION_POINTS = 2.0, 1.0, 128
 
 # float32: the kernel and the plain version do the same float32 math and
 # differ only in summation order (~1e-6 relative measured); 1e-4 relative
@@ -144,6 +165,7 @@ _PS = "graspldm_tpu/models/pallas_sampler.py"
 REPLACES = {
     "stage_kernel": "graspldm_tpu/models/stacked_pallas.py:900",
     "final_kernel": "graspldm_tpu/models/stacked_pallas.py:914",
+    "full_kernel": "graspldm_tpu/models/stacked_pallas.py:826",
     "ddim_sampler_kernel": f"{_PS}:482",
     "dpmpp_sampler_kernel": f"{_PS}:513",
     "churn_sampler_kernel": f"{_PS}:535",
@@ -159,6 +181,7 @@ REPLACES = {
 SOURCES = {
     "stage_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "final_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
+    "full_kernel": "graspldm_tpu_torch/csrc/full_net.cu",
     "ddim_sampler_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "dpmpp_sampler_kernel": "graspldm_tpu_torch/csrc/dpmpp_sampler.cu",
     "churn_sampler_kernel": "graspldm_tpu_torch/csrc/churn_sampler.cu",
@@ -199,8 +222,9 @@ def counters():
     from graspldm_tpu_torch.models import cuda_sampler as cs
     from graspldm_tpu_torch.models import stacked_cuda as sc
 
-    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL,
-            cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL, cs.CHURN_STEP_KERNEL)
+    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL, cs.SAMPLER_KERNEL,
+            cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
+            cs.CHURN_STEP_KERNEL)
 
 
 def counts() -> dict:
@@ -315,10 +339,14 @@ def final_macs(d) -> int:
     return E * 2 * C + 2 * L * 3 * C * C + L * C
 
 
+def full_macs(d) -> int:
+    """Every stage and the final block for one row: ``full_kernel``'s work."""
+    return sum(stage_macs(d, i) for i in range(len(d.block_channels))) + final_macs(d)
+
+
 def net_macs(d) -> int:
     """One evaluation of the whole network for one row (init conv included)."""
-    return 7 * d.seq_len * d.cins[0] + sum(stage_macs(d, i) for i in range(
-        len(d.block_channels))) + final_macs(d)
+    return 7 * d.seq_len * d.cins[0] + full_macs(d)
 
 
 def nbytes(*ts) -> int:
@@ -711,6 +739,86 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
                 r["chain_vs_whole"] = dict(steps=n, max_abs_err=e, bitwise_equal=bitwise)
 
 
+def full_operands(w, bg: int, gen, dev):
+    """``full_kernel``'s operands for ``bg`` rows, as the guided path makes
+    them: the init conv's output for random latents and the FiLM input at
+    random timesteps, with a class embedding for a class-conditioned pack."""
+    from graspldm_tpu_torch.models.stacked_cuda import init_conv
+    from graspldm_tpu_torch.models.stacked_denoiser import (
+        compute_emb_s_stacked, compute_extra_emb, compute_input_emb,
+    )
+
+    d = w.dims
+    z = torch.randn((bg, d.cond_channels, d.cond_dim), generator=gen, device=dev)
+    t = torch.randint(0, 1000, (bg,), generator=gen, device=dev)
+    x_T = torch.randn((bg, d.seq_len), generator=gen, device=dev)
+    input_emb = compute_input_emb(w.aux, z)
+    if "cls_w" in w.aux:  # folded into the conditioning rows, as the pipeline does
+        cls = torch.randint(0, 4, (bg,), generator=gen, device=dev).float()
+        input_emb = input_emb + compute_extra_emb(w.aux, cls_cond=cls)[:, None, :]
+    emb = compute_emb_s_stacked(w.aux, t, input_emb=input_emb).to(w.dtype).contiguous()
+    return init_conv(w, x_T).reshape(bg, -1).to(w.dtype).contiguous(), emb
+
+
+def stage_chain(w, x, emb):
+    """The 5-launch lowering of the same function: every ``stage_kernel``,
+    then ``final_kernel``."""
+    from graspldm_tpu_torch.models.stacked_cuda import final_apply, stage_apply
+
+    for i in range(len(w.dims.block_channels)):
+        x = stage_apply(w, i, x, emb)
+    return final_apply(w, x, emb)
+
+
+def full_kernel_phase(run: Run, nets: list, dev) -> None:
+    """``full_kernel`` against ``full_plain`` and the stage chain on the same
+    operands, for each ``(config, label, denoiser)`` of ``nets``: an
+    unconditioned denoiser in float32 and bfloat16 at a ragged BG and at
+    the guided main path's row counts (timed there), a conditioned one (it
+    runs float32) at the CFG row count."""
+    from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet, full_apply, full_plain
+    from graspldm_tpu_torch.models.stacked_denoiser import pack_math_weights
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    for config, label, ddm in nets:
+        dims = _denoiser_dims(ddm)
+        math_w = pack_math_weights(ddm, dims)
+        dts = (torch.float32,) if ddm.conditioning else (torch.float32, torch.bfloat16)
+        bgs = FULL_BG[config][1:] if ddm.conditioning else (RAGGED_BG,) + FULL_BG[config]
+        for dt in dts:
+            w = PackedNet(math_w, dims, dt, dev)
+            tag = tag_of(dt)
+            tol = TOL_FP32 if tag == "fp32" else TOL_BF16
+            for bg in bgs:
+                log(f"[kernels] full_kernel {label} {tag}, L={dims.seq_len}, BG={bg}")
+                x, emb = full_operands(w, bg, gen, dev)
+                ref = full_plain(w, x, emb)
+                got = full_apply(w, x, emb)
+                chain = stage_chain(w, x, emb)
+                torch.cuda.synchronize()
+                err = run.compare(f"full_kernel {label} BG={bg} vs full_plain", got, ref, tol)
+                run.compare(f"full_kernel {label} BG={bg} vs the stage chain", got, chain, tol)
+                bitwise = bool(torch.equal(got, chain))
+                log(f"  bitwise equal to the stage chain: {bitwise}")
+                r = run.record("full_kernel", config, dims.seq_len, FULL_BG[config][0], None, tag,
+                               what="one denoiser evaluation (guided samplers)")
+                r.setdefault("err_checked_at", []).append(
+                    dict(BG=bg, what=label, max_abs_err=err, bitwise_equal_chain=bitwise))
+                if bg not in FULL_BG[config] or ddm.conditioning:
+                    continue
+                k_ms = cuda_ms(lambda: full_apply(w, x, emb), 10)
+                p_ms = cuda_ms(lambda: full_plain(w, x, emb), 3)
+                c_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
+                b = bound(2.0 * full_macs(dims) * bg, nbytes(x, emb, ref, w.flat, w.layout), tag)
+                log(f"  full_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, chain of 5 "
+                    f"launches {c_ms:.3f} ms; bound {b['bound_ms']:.4f} ms")
+                timed = dict(BG=bg, ms=k_ms, plain_ms=p_ms, chain_ms=c_ms, **b)
+                r.setdefault("timed_at", []).append(timed)
+                if bg == FULL_BG[config][0]:
+                    r.update(err=err, ms=k_ms, plain_ms=p_ms, chain_ms=c_ms, **b)
+
+
 # ---------------------------------------------------------------------------
 # main paths
 # ---------------------------------------------------------------------------
@@ -834,30 +942,37 @@ def per_trajectory_call(kind: str, steps: int) -> dict:
     return {STEP_KERNEL[kind]: steps, "stage_kernel": 4 * decoded, "final_kernel": decoded}
 
 
+def _timed(fn, part: str, times: dict):
+    """``fn`` that adds its host time, bracketed by ``torch.cuda.synchronize``,
+    to ``times[part]``."""
+    def call(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*a, **k)
+        torch.cuda.synchronize()
+        times[part] = times.get(part, 0.0) + time.perf_counter() - t0
+        return res
+    return call
+
+
 @contextlib.contextmanager
-def split_times(times: dict):
-    """Add the host time of ``ldm_generate``'s sampler call and of its
-    decodes (each bracketed by ``torch.cuda.synchronize``) to ``times``
-    ("sampler", "decode"), by wrapping the pipeline module's names for the
-    duration."""
+def split_times(times: dict, parts: dict | None = None, made: dict | None = None):
+    """Add the host time of the pipeline module's functions in ``parts``
+    (name -> part; default: ``ldm_generate``'s sampler call and its
+    decodes, "sampler" and "decode") and of the functions that the
+    factories in ``made`` (name -> part) return, to ``times``, by wrapping
+    the pipeline module's names for the duration."""
     from graspldm_tpu_torch.inference import pipeline as pl
 
-    parts = {"fused_sample": "sampler", "fused_sample_dpmpp": "sampler",
-             "fused_sample_churn": "sampler", "decode_and_postprocess": "decode"}
-    saved = {n: getattr(pl, n) for n in parts}
-
-    def timed(fn, part):
-        def call(*a, **k):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            res = fn(*a, **k)
-            torch.cuda.synchronize()
-            times[part] = times.get(part, 0.0) + time.perf_counter() - t0
-            return res
-        return call
-
+    if parts is None:
+        parts = {"fused_sample": "sampler", "fused_sample_dpmpp": "sampler",
+                 "fused_sample_churn": "sampler", "decode_and_postprocess": "decode"}
+    made = made or {}
+    saved = {n: getattr(pl, n) for n in (*parts, *made)}
     for n, part in parts.items():
-        setattr(pl, n, timed(saved[n], part))
+        setattr(pl, n, _timed(saved[n], part, times))
+    for n, part in made.items():
+        setattr(pl, n, lambda *a, _f=saved[n], _p=part, **k: _timed(_f(*a, **k), _p, times))
     try:
         yield times
     finally:
@@ -907,6 +1022,71 @@ def trajectory_phase(run: Run, fpc: dict, ppc: dict, dev) -> None:
                                 **per_trajectory_call(kind, steps))
 
 
+def region_of(pc_n: torch.Tensor, g: int, gen) -> torch.Tensor:
+    """``[B*g, REGION_POINTS, 3]``: per cloud, the REGION_POINTS points
+    nearest one of its points drawn from ``gen``, repeated per grasp."""
+    b, n = pc_n.shape[:2]
+    centre = pc_n[torch.arange(b), torch.randint(0, n, (b,), generator=gen, device=pc_n.device)]
+    idx = ((pc_n - centre[:, None]) ** 2).sum(-1).topk(REGION_POINTS, largest=False).indices
+    region = torch.gather(pc_n, 1, idx[..., None].expand(-1, -1, 3))
+    return region.repeat_interleave(g, dim=0)
+
+
+def guided_phase(run: Run, cls_fpc, fpc, fpc_edm, region_ppc, dev) -> None:
+    """The guided and conditioned calls at full width, each twice: exact
+    launch counts per call, every pose checked, and each guided call's wall
+    time split into denoiser launches (``stacked_denoiser_apply`` with
+    ``fuse_stages=True``), guidance VJPs (the success gradient) and the
+    rest (encode, packing, tables, sampler arithmetic, decode)."""
+    from graspldm_tpu_torch.inference.pipeline import ldm_generate
+
+    pc_n, meta = _normalized(dev, B, SEED)
+    pc1, meta1 = _normalized(dev, 1, SEED + 7)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    cls = torch.arange(B, dtype=torch.float32, device=dev).repeat_interleave(G)
+    region = region_of(pc1, G, gen)
+    calls = [
+        ("class fpc ddim, unguided", "fpc", cls_fpc, pc_n, meta, "ddim", STEPS,
+         dict(cls_cond=cls), per_call("ddim_sampler_kernel")),
+        ("class fpc ddim, cfg", "fpc", cls_fpc, pc_n, meta, "ddim", STEPS,
+         dict(cls_cond=cls, cfg_scale=CFG_SCALE), per_call_full(STEPS)),
+        ("fpc ddim, success guidance", "fpc", fpc, pc_n, meta, "ddim", STEPS,
+         dict(guidance_scale=GUIDANCE_SCALE), per_call_full(STEPS)),
+        ("EDM fpc dpmpp, success guidance", "fpc", fpc_edm, pc_n, meta, "dpmpp",
+         EDM_STEPS["dpmpp"], dict(guidance_scale=GUIDANCE_SCALE),
+         per_call_full(EDM_STEPS["dpmpp"])),
+        ("region EDM ppc dpmpp, cfg", "ppc", region_ppc, pc1, meta1, "dpmpp", EDM_STEPS["dpmpp"],
+         dict(region_points=region, cfg_scale=CFG_SCALE), per_call_full(EDM_STEPS["dpmpp"])),
+    ]
+    for label, config, models, pc, m, sampler, steps, kw, expect in calls:
+        b = pc.shape[0]
+        log(f"[guided] {label}: B={b} x N={N_POINTS}, G={G}, {sampler} x {steps} steps "
+            f"(denoiser {'fp32' if models[1].conditioning else 'bf16'}, decoder bf16)"
+            + "".join(f", {k}={v}" for k, v in kw.items() if isinstance(v, float)))
+        for i in range(2):
+            times: dict = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with split_times(times, {"stacked_denoiser_apply": "denoiser"},
+                             {"make_success_guidance": "guidance"}):
+                out = ldm_generate(*models, pc, G, gen, num_inference_steps=steps,
+                                   sampler=sampler, meta=m, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            den, vjp = times.get("denoiser", 0.0), times.get("guidance", 0.0)
+            log(f"  call {i + 1}: wall {wall:.3f} s = denoiser launches {den:.3f} s + guidance "
+                f"VJPs {vjp:.3f} s + rest {wall - den - vjp:.3f} s"
+                + (" (first call: set-up included)" if i == 0 else ""))
+            check_grasps(out, b, G)
+            run.expect_more(f"guided {label}", config, **expect)
+
+
+def per_call_full(evals: int) -> dict:
+    """One guided call: one ``full_kernel`` launch per denoiser evaluation,
+    then the decode (4 stage launches and the final block)."""
+    return {"full_kernel": evals, "stage_kernel": 4, "final_kernel": 1}
+
+
 def _post(url: str, body: dict, results: list, i: int) -> None:
     req = urllib.request.Request(url, data=json.dumps(body).encode(),
                                  headers={"Content-Type": "application/json"})
@@ -918,14 +1098,19 @@ def _post(url: str, body: dict, results: list, i: int) -> None:
 
 
 def server_phase(run: Run, models, dev, steps: int, sampler: str, kernel: str) -> None:
+    """3 concurrent requests through ``GraspServer``; to a class-conditioned
+    denoiser each request carries a ``cls``."""
     from graspldm_tpu_torch.serving import (
         DynamicBatcher, GraspServer, make_batch_generate_from_parts,
     )
 
-    log(f"[server] GraspServer, LDM mode, up to {G} grasps, {sampler} x {steps} steps")
+    conditioning = models[1].conditioning
+    log(f"[server] GraspServer, LDM mode, up to {G} grasps, {sampler} x {steps} steps"
+        + (", class-conditioned" if conditioning else ""))
     fn = make_batch_generate_from_parts(*models, device=dev, num_grasps=G,
                                         num_inference_steps=steps, sampler=sampler, seed=SEED)
-    batcher = DynamicBatcher(fn, num_points=N_POINTS, max_batch=4, max_wait_ms=50.0)
+    batcher = DynamicBatcher(fn, num_points=N_POINTS, max_batch=4, max_wait_ms=50.0,
+                             requires_cls=conditioning == "class")
     server = GraspServer(batcher, host="127.0.0.1", port=0, info={"num_grasps": G})
     server.start_background()
     try:
@@ -934,11 +1119,12 @@ def server_phase(run: Run, models, dev, steps: int, sampler: str, kernel: str) -
         rng = np.random.default_rng(SEED + 2)
         reqs = [(N_POINTS, G), (2 * N_POINTS, G // 4), (N_POINTS // 2, G // 16)]
         results = [None] * len(reqs)
-        threads = [
-            threading.Thread(target=_post, args=(
-                url, {"points": clouds(rng, 1, n)[0].tolist(), "num_grasps": g}, results, i))
-            for i, (n, g) in enumerate(reqs)
-        ]
+        bodies = [{"points": clouds(rng, 1, n)[0].tolist(), "num_grasps": g} for n, g in reqs]
+        if conditioning == "class":
+            for i, body in enumerate(bodies):
+                body["cls"] = float(i)
+        threads = [threading.Thread(target=_post, args=(url, body, results, i))
+                   for i, body in enumerate(bodies)]
         t0 = time.perf_counter()
         for t in threads:
             t.start()
@@ -980,17 +1166,40 @@ def reference_phase(run: Run, dev) -> None:
         for s, n in EDM_STEPS.items()
     ]
     runs.append(("ddim", False, STEPS, x_unit, None, True))
-    for sampler, edm, steps, x_T, noise, *traj in runs:
+    ddpm_noise = torch.randn((STEPS, b * g, 4), generator=cpu_gen)
+    cls = torch.arange(b, dtype=torch.float32).repeat_interleave(g)
+    region = region_of(pc_n, g, cpu_gen)
+    # (conditioning, sampler, EDM, steps, x_T, noise, ldm_generate options)
+    guided = [
+        ("class", "ddim", False, STEPS, x_unit, None, dict(cls_cond=cls, cfg_scale=CFG_SCALE)),
+        (None, "ddpm", False, STEPS, x_unit, ddpm_noise, dict(guidance_scale=GUIDANCE_SCALE)),
+        (None, "churn", True, EDM_STEPS["churn"], 80.0 * x_unit, churn_noise,
+         dict(guidance_scale=GUIDANCE_SCALE)),
+        ("region", "dpmpp", True, EDM_STEPS["dpmpp"], 80.0 * x_unit, None,
+         dict(region_points=region, cfg_scale=CFG_SCALE)),
+        ("class", "ddim", False, STEPS, x_unit, None,
+         dict(cls_cond=cls, cfg_scale=CFG_SCALE, guidance_scale=GUIDANCE_SCALE)),
+    ]
+    unguided = [(None, sampler, edm, steps, x_T, noise, dict(return_trajectory=bool(traj)))
+                for sampler, edm, steps, x_T, noise, *traj in runs]
+    for conditioning, sampler, edm, steps, x_T, noise, opts in unguided + guided:
         log(f"[reference] fp32 ldm_generate B={b}, G={g}, {sampler} x {steps} steps"
-            + (", return_trajectory" if traj else "") + ": card vs CPU")
-        vae, ddm, diffusion = build_models("float32", "cpu", elucidated=edm)
-        kw = dict(num_inference_steps=steps, sampler=sampler, return_trajectory=bool(traj))
-        want = ldm_generate(vae, ddm, diffusion, pc_n, g, meta=meta, x_T=x_T, noise=noise, **kw)
+            + (f", {conditioning}-conditioned" if conditioning else "")
+            + "".join(f", {k}" for k, v in opts.items() if v is not False)
+            + ": card vs CPU")
+        vae, ddm, diffusion = build_models("float32", "cpu", elucidated=edm,
+                                           conditioning=conditioning)
+        kw = dict(num_inference_steps=steps, sampler=sampler)
+        want = ldm_generate(vae, ddm, diffusion, pc_n, g, meta=meta, x_T=x_T, noise=noise,
+                            **opts, **kw)
         vae_d, ddm_d = copy.deepcopy(vae).to(dev), copy.deepcopy(ddm).to(dev)
         got = ldm_generate(vae_d, ddm_d, diffusion, pc_n.to(dev), g, meta=meta_d,
-                           x_T=x_T.to(dev), noise=None if noise is None else noise.to(dev), **kw)
+                           x_T=x_T.to(dev), noise=None if noise is None else noise.to(dev),
+                           **{k: v.to(dev) if torch.is_tensor(v) else v for k, v in opts.items()},
+                           **kw)
         keys = ("grasps", "grasp_tmrp", "confidence")
-        for k in keys + (("latent_trajectory", "all_diffusion_grasps") if traj else ()):
+        for k in keys + (("latent_trajectory", "all_diffusion_grasps")
+                         if opts.get("return_trajectory") else ()):
             err = (got[k].cpu() - want[k]).abs().max().item()
             log(f"  {k}: max_abs_err {err:.3e} tol {TOL_E2E:.0e}")
             if not err <= TOL_E2E:
@@ -1019,6 +1228,9 @@ def kernels_line(run: Run) -> dict:
             "max_abs_err_fp32": fp.get("err"), "ms_fp32": fp.get("ms"),
             "plain_ms_fp32": fp.get("plain_ms"), "bound_ms_fp32": fp.get("bound_ms"),
             "bound_by_fp32": fp.get("bound_by"),
+            **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
+               for k in ("chain_ms", "timed_at") if k in t},
+            **({"err_checked_at_fp32": fp["err_checked_at"]} if name == "full_kernel" else {}),
             **{k: v for k, v in bf.items() if k.startswith("bf16_vs_fp32_plain")},
             **({"chain_vs_whole": bf["chain_vs_whole"],
                 "chain_vs_whole_fp32": fp.get("chain_vs_whole")} if "chain_vs_whole" in bf
@@ -1050,6 +1262,8 @@ def main() -> int:
     ppc_ddim = build_models("bfloat16", dev, **PPC)
     fpc_edm = build_models("bfloat16", dev, elucidated=True)
     ppc_edm = build_models("bfloat16", dev, elucidated=True, **PPC)
+    cls_fpc = build_models("bfloat16", dev, conditioning="class")
+    region_ppc = build_models("bfloat16", dev, elucidated=True, conditioning="region", **PPC)
     run.phase("kernels fpc", kernel_phase, *ddim_models, dev)
     run.phase("kernels EDM fpc", edm_kernel_phase, fpc_edm[1], fpc_edm[2], dev)
     ppc_sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
@@ -1058,6 +1272,9 @@ def main() -> int:
               ddim_models[2].schedule, dev, BG)
     run.phase("step kernels ppc", step_kernel_phase, "ppc", ppc_edm[1], ppc_edm[2],
               ppc_sched, dev, PPC_BG)
+    run.phase("full kernel", full_kernel_phase,
+              [("fpc", "fpc", fpc_edm[1]), ("fpc", "fpc class-conditioned", cls_fpc[1]),
+               ("ppc", "ppc", ppc_edm[1])], dev)
 
     run.reset_counts("ddim")
     run.phase("generation ddim", generation_phase, ddim_models, ppc_ddim, dev)
@@ -1075,6 +1292,12 @@ def main() -> int:
     run.phase("trajectories", trajectory_phase,
               dict(ddim=ddim_models, edm=fpc_edm), dict(ddim=ppc_ddim, edm=ppc_edm), dev)
     log(f"[main path trajectory] launches: {counts()}")
+
+    run.reset_counts("guided")
+    run.phase("guided", guided_phase, cls_fpc, ddim_models, fpc_edm, region_ppc, dev)
+    run.phase("server class-conditioned", server_phase, cls_fpc, dev, STEPS, "ddim",
+              "ddim_sampler_kernel")
+    log(f"[main path guided] launches: {counts()}")
     for name, config in run.records:
         n = launches_of(run, name, config)
         log(f"  {name} at {config}: {n}")

@@ -57,6 +57,10 @@ _SOURCES = {
         "gl_churn_sample": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _P],
     },
+    "full_net.cu": {
+        # dtype, x, emb, w, net, out, BG, L, E, Ce, G, cmax, stream
+        "gl_full_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    },
     "step_samplers.cu": {
         # dtype, x, embin, trow, coef, noise, w, net, out, BG, L, E, Ce, G, cmax, clip,
         # clip_range, stream

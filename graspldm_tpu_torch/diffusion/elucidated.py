@@ -11,8 +11,10 @@ torch cannot reproduce ``jax.random``, so the starting latents ``x_T``
 (already scaled by sigma_max) and the churn sampler's per-step unit
 normals are explicit tensors; when they are not given they are drawn from
 the caller's ``torch.Generator``. With ``return_trajectory`` each sampler
-also returns its states as the JAX package's does. Guidance is not ported
-yet and raises; the training loss waits for the training slice.
+also returns its states as the JAX package's does. A ``guidance_fn``
+(:mod:`.guidance`) shifts every preconditioned estimate; the guided
+generation path runs these loops. The training loss waits for the training
+slice.
 """
 
 from __future__ import annotations
@@ -107,10 +109,16 @@ class ElucidatedDiffusion:
         shape = (batch_size, self.channels, self.n_dims)
         return sigmas[0].item() * torch.randn(shape, generator=generator, device=device)
 
-    @staticmethod
-    def _unported(guidance_fn) -> None:
+    def _guided(self, denoise_fn: DenoiseFn, noised_x: torch.Tensor, sigma: torch.Tensor,
+                z_cond: Optional[torch.Tensor], clamp: bool, guidance_fn,
+                guidance_scale: float) -> torch.Tensor:
+        """The denoised estimate with the latent-space guidance shift: the
+        network's output is the x0 estimate, so ``score += s * g(D)`` with
+        ``score = (D - x) / sigma^2`` is ``D <- D + s * sigma^2 * g(D)``."""
+        out = self.preconditioned(denoise_fn, noised_x, sigma, z_cond, clamp)
         if guidance_fn is not None:
-            raise NotImplementedError("EDM guidance is not ported yet")
+            out = out + guidance_scale * (sigma**2)[:, None, None] * guidance_fn(out)
+        return out
 
     @torch.no_grad()
     def sample_churn(
@@ -118,14 +126,15 @@ class ElucidatedDiffusion:
         num_sample_steps: Optional[int] = None, clamp: bool = False,
         x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None, device=None,
-        return_trajectory: bool = False, guidance_fn=None,
+        return_trajectory: bool = False, guidance_fn=None, guidance_scale: float = 1.0,
     ):
         """Stochastic churn sampler with the Heun 2nd-order correction
         (Algorithm 2). ``noise [N, B, 1, D]`` holds each step's unit normal
         (scaled by ``S_noise`` here). Returns ``x_0``; with
         ``return_trajectory`` the pair ``(x_0, trajectory [N + 1, B, 1,
-        D])``, x_T first."""
-        self._unported(guidance_fn)
+        D])``, x_T first. Each step evaluates ``denoise_fn`` (and
+        ``guidance_fn``) twice, the last step once: 2N - 1 evaluations."""
+        guide = (guidance_fn, guidance_scale)
         N = num_sample_steps or self.num_sample_steps
         sigmas = self.sample_schedule(N)
         gammas = self.churn_gammas(sigmas)
@@ -142,14 +151,14 @@ class ElucidatedDiffusion:
             eps = self.S_noise * noise[i].reshape(x.shape).float()
             sigma_hat = sigma + gammas[i].item() * sigma
             x_hat = x + math.sqrt(max(sigma_hat**2 - sigma**2, 0.0)) * eps
-            denoised = self.preconditioned(denoise_fn, x_hat, full(sigma_hat), z_cond, clamp)
+            denoised = self._guided(denoise_fn, x_hat, full(sigma_hat), z_cond, clamp, *guide)
             d = (x_hat - denoised) / sigma_hat
             x_euler = x_hat + (sigma_next - sigma_hat) * d
             if sigma_next == 0.0:  # the 2nd-order correction is skipped
                 x = x_euler
             else:
-                denoised_next = self.preconditioned(
-                    denoise_fn, x_euler, full(sigma_next), z_cond, clamp)
+                denoised_next = self._guided(
+                    denoise_fn, x_euler, full(sigma_next), z_cond, clamp, *guide)
                 d_prime = (x_euler - denoised_next) / sigma_next
                 x = x_hat + 0.5 * (sigma_next - sigma_hat) * (d + d_prime)
             traj.append(x)
@@ -161,11 +170,11 @@ class ElucidatedDiffusion:
         num_sample_steps: Optional[int] = None, clamp: bool = False,
         x_T: Optional[torch.Tensor] = None, generator: Optional[torch.Generator] = None,
         device=None, return_trajectory: bool = False, guidance_fn=None,
+        guidance_scale: float = 1.0,
     ):
         """DPM-Solver++(2M) (2211.01095), deterministic after ``x_T``.
         Returns ``x_0``; with ``return_trajectory`` the pair ``(x_0,
         trajectory [N, B, 1, D])``, the state after each step (no x_T)."""
-        self._unported(guidance_fn)
         N = num_sample_steps or self.num_sample_steps
         sigmas = self.sample_schedule(N)
         x = self._start(sigmas, batch_size, x_T, generator, device)
@@ -177,7 +186,8 @@ class ElucidatedDiffusion:
         for i in range(N):
             sigma, sigma_next = sigmas[i].item(), sigmas[i + 1].item()
             sig_b = torch.full((x.shape[0],), sigma, dtype=torch.float32, device=x.device)
-            denoised = self.preconditioned(denoise_fn, x, sig_b, z_cond, clamp)
+            denoised = self._guided(denoise_fn, x, sig_b, z_cond, clamp, guidance_fn,
+                                    guidance_scale)
             h = t_fn(sigma_next) - t_fn(sigma)
             if old is None or sigma_next == 0.0:  # first order
                 denoised_d = denoised

@@ -3,7 +3,10 @@
 Counterpart of :meth:`graspldm_tpu.diffusion.gaussian.GaussianDiffusion1D.
 sample`. torch cannot reproduce ``jax.random``, so the starting latents
 ``x_T`` and the DDPM per-step noise are explicit tensors; when they are not
-given they are drawn from the caller's ``torch.Generator``.
+given they are drawn from the caller's ``torch.Generator``. The guided
+generation path runs this loop (one denoiser call per step); the unguided
+one runs the whole trajectory as one kernel launch instead
+(:mod:`..models.cuda_sampler`).
 """
 
 from __future__ import annotations
@@ -39,8 +42,15 @@ class GaussianDiffusion1D:
         generator: Optional[torch.Generator] = None,
         device=None,
         return_trajectory: bool = False,
+        guidance_fn=None,
+        guidance_scale: float = 1.0,
     ):
         """Reverse diffusion from ``x_T`` (``[B, 1, D]``) to ``x_0``.
+
+        ``guidance_fn`` (:mod:`.guidance`: ``x0 -> grad log p(y | x0)``)
+        shifts each step's score: with the x0 estimate from the frozen
+        epsilon, ``eps <- eps - guidance_scale * sqrt(1 - acp_t) /
+        sqrt(acp_t) * g``.
 
         ``noise`` is ``[len(grid), B, 1, D]`` (DDPM only): one draw per step
         of ``timestep_grid(S)``, which has more than S entries when S does
@@ -66,6 +76,10 @@ class GaussianDiffusion1D:
         for s, t in enumerate(ts):
             t_batch = torch.full((batch_size,), t, dtype=torch.int64, device=x.device)
             eps = denoise_fn(x, t_batch, z_cond)
+            if guidance_fn is not None:
+                acp_t = self.schedule.alphas_cumprod[t].to(x.device)
+                g = guidance_fn(self.schedule.pred_x0_from_eps(x, eps, acp_t))
+                eps = eps - (guidance_scale * torch.sqrt(1.0 - acp_t) / torch.sqrt(acp_t)) * g
             if sampler == "ddim":
                 x = self.schedule.ddim_step(x, eps, t, t - stride)
             else:

@@ -4,9 +4,13 @@ Counterpart of :mod:`graspldm_tpu.flagship`: pc 1024 points -> z_pc [3, 64];
 grasp latent 4; linear betas 5e-5..1e-3, T=1000, fixed_large, epsilon
 prediction; or, with ``elucidated=True``, EDM diffusion sampled in
 ``edm_num_sample_steps`` (32) steps by default. The ppc flagship is
-``FlagshipConfig(pc_latent_size=256, grasp_latent_size=16)``. The options
-this port does not carry yet (class/region conditioning, a separate
-training dtype) raise.
+``FlagshipConfig(pc_latent_size=256, grasp_latent_size=16)``.
+``conditioning="class"`` / ``"region"`` builds the class- or
+region-conditioned denoiser (:mod:`.models.conditioning`), which computes
+in float32 whatever ``denoiser_dtype`` says; the decoder keeps
+``denoiser_dtype``, as in the JAX package. The JAX config's training and
+data options (``cond_dropout``, ``region_num_points``) come with the
+training slice.
 """
 
 from __future__ import annotations
@@ -19,7 +23,12 @@ import torch
 from torch import nn
 
 from .diffusion import DiffusionSchedule, ElucidatedDiffusion, GaussianDiffusion1D
-from .models import GraspCVAE, GraspLatentDDM
+from .models import (
+    ClassConditionedGraspLatentDDM,
+    GraspCVAE,
+    GraspLatentDDM,
+    RegionConditionedGraspLatentDDM,
+)
 
 __all__ = ["FlagshipConfig", "build_flagship", "resolve_device", "resolve_dtype", "init_params_"]
 
@@ -47,6 +56,7 @@ class FlagshipConfig:
     # EDM (elucidated) diffusion instead of DDPM/DDIM
     elucidated: bool = False
     edm_num_sample_steps: int = 32
+    # task conditioning of the denoiser: None | "class" | "region"
     conditioning: Optional[str] = None
 
 
@@ -104,8 +114,11 @@ def build_flagship(cfg: FlagshipConfig = FlagshipConfig(),
     """Returns ``(vae, ddm, diffusion)`` in eval mode on ``device`` (default:
     the CUDA card, see :func:`resolve_device`); with a ``generator`` (a CPU
     one) their weights are drawn from it (:func:`init_params_`)."""
-    if cfg.conditioning is not None:
-        raise NotImplementedError("class/region conditioning is not ported yet")
+    ddm_cls = {None: GraspLatentDDM, "class": ClassConditionedGraspLatentDDM,
+               "region": RegionConditionedGraspLatentDDM}.get(cfg.conditioning)
+    if ddm_cls is None:
+        raise ValueError(f"unknown conditioning {cfg.conditioning!r}; "
+                         "expected None, 'class' or 'region'")
     device = resolve_device(device)
     dtype = resolve_dtype(cfg.denoiser_dtype)
     vae = GraspCVAE(
@@ -122,13 +135,13 @@ def build_flagship(cfg: FlagshipConfig = FlagshipConfig(),
         pc_scale_voxel_resolution=cfg.pc_scale_voxel_resolution,
         decoder_dtype=dtype,
     )
-    ddm = GraspLatentDDM(
+    ddm = ddm_cls(
         latent_in_features=cfg.grasp_latent_size,
         pc_latent_size=cfg.pc_latent_size,
         block_channels=cfg.block_channels,
         resnet_block_groups=cfg.resnet_block_groups,
         dropout=cfg.dropout,
-        dtype=dtype,
+        **({} if cfg.conditioning else dict(dtype=dtype)),
     )
     if generator is not None:
         init_params_(vae, generator)

@@ -1,18 +1,26 @@
 """Generation pipelines: point clouds -> grasp poses (torch).
 
-Counterpart of :mod:`graspldm_tpu.inference.pipeline` for the unguided
-paths: encode the cloud once (PVCNN, plain PyTorch), sample ``num_grasps``
-latents (from N(0, I), or by reverse diffusion in one sampler-kernel
-launch: ``ddim_sampler_kernel`` for DDIM/DDPM, ``dpmpp_sampler_kernel`` or
-``churn_sampler_kernel`` for EDM), decode them through the stage kernels,
+Counterpart of :mod:`graspldm_tpu.inference.pipeline`: encode the cloud
+once (PVCNN, plain PyTorch), sample ``num_grasps`` latents (from N(0, I),
+or by reverse diffusion), decode them through the stage kernels,
 unnormalize, convert tmrp -> 4x4 transforms and sigmoid the success logit.
-With ``return_trajectory`` the sampler runs one per-step kernel launch per
-step instead and up to 50 of its states are decoded too.
 
-The kernels run wherever the tensors live: on a CUDA device the
+Reverse diffusion takes one of two routes, as in the JAX package:
+
+* unguided (class / region conditioning included: its embedding is
+  constant across steps and folds into the conditioning embedding): one
+  sampler-kernel launch, ``ddim_sampler_kernel`` for DDIM/DDPM,
+  ``dpmpp_sampler_kernel`` or ``churn_sampler_kernel`` for EDM; with
+  ``return_trajectory`` one per-step kernel launch per step instead;
+* guided (``cfg_scale``, ``guidance_scale`` or ``guidance_fn``): the
+  Python-loop samplers, whose per-step guidance work (the CFG combine, the
+  decoder VJP) runs between denoiser evaluations, each one ``full_kernel``
+  launch (:func:`..models.stacked_cuda.stacked_denoiser_apply` with
+  ``fuse_stages=True``).
+
+With ``return_trajectory`` up to 50 of the sampler's states are decoded
+too. The kernels run wherever the tensors live: on a CUDA device the
 hand-written kernels launch, on the CPU their plain PyTorch versions run.
-Guidance, classifier-free guidance and class/region conditioning are not
-ported yet and raise.
 """
 
 from __future__ import annotations
@@ -21,11 +29,16 @@ from typing import Dict, NamedTuple, Optional, Union
 
 import torch
 
-from ..diffusion import ElucidatedDiffusion, GaussianDiffusion1D
+from ..diffusion import ElucidatedDiffusion, GaussianDiffusion1D, make_success_guidance
 from ..models.cuda_sampler import fused_sample, fused_sample_churn, fused_sample_dpmpp
 from ..models.fast_decoder import decoder_dims_for, decoder_fast_apply, pack_decoder_weights
-from ..models.stacked_cuda import PackedNet
-from ..models.stacked_denoiser import DenoiserDims, compute_input_emb, pack_math_weights
+from ..models.stacked_cuda import PackedNet, stacked_denoiser_apply
+from ..models.stacked_denoiser import (
+    DenoiserDims,
+    compute_extra_emb,
+    compute_input_emb,
+    pack_math_weights,
+)
 from ..utils.normalization import NormalizationMeta, unnormalize_grasps
 from ..utils.rotations import tmrp_to_H
 
@@ -62,9 +75,54 @@ def _kernel_dtype(d) -> torch.dtype:
     return torch.bfloat16 if d == torch.bfloat16 else torch.float32
 
 
+def _check_denoiser(ddm, cond_kwargs: dict) -> None:
+    """The JAX package's rules for its kernel paths
+    (``pipeline.py:_resolve_denoiser_impl``): an unconditioned denoiser
+    takes no condition, a class- or region-conditioned one exactly its
+    own; z4 / z16 latents; random Fourier time features."""
+    want = {None: set(), "class": {"cls_cond"}, "region": {"region_points"}}
+    if (set(cond_kwargs) != want[ddm.conditioning]
+            or ddm.latent_in_features not in (4, 16) or not ddm.random_fourier_features):
+        raise ValueError(
+            "the kernel path supports GraspLatentDDM (z4/z16, random Fourier time "
+            "embedding), ClassConditionedGraspLatentDDM with cls_cond, or "
+            "RegionConditionedGraspLatentDDM with region_points"
+        )
+
+
+def _guided_denoise_fn(w: PackedNet, input_emb: torch.Tensor, extra: Optional[torch.Tensor],
+                       cfg_scale: Optional[float]):
+    """``denoise(x [BG, 1, L], t [BG], z) -> eps`` (float32) for the
+    Python-loop samplers: one ``full_kernel`` launch per call.
+
+    ``input_emb [BG, Ce, E]`` is hoisted out of the loop with the extra
+    embedding folded in. With ``cfg_scale`` each call runs a doubled batch:
+    rows ``[:BG]`` conditioned, rows ``[BG:]`` with the extra embedding
+    zeroed (the null condition, ``cond_mask = 0``), combined as ``e_u + w
+    (e_c - e_u)`` in float32 (``pipeline.py:_make_cfg_denoise_fn``)."""
+    if cfg_scale is None:
+        ie = input_emb if extra is None else input_emb + extra[:, None, :]
+
+        def denoise(x, t, z):
+            return stacked_denoiser_apply(w, x, t, None, ie, fuse_stages=True).float()
+
+        return denoise
+    BG = input_emb.shape[0]
+    ie2 = torch.cat([input_emb + extra[:, None, :], input_emb])
+
+    def denoise(x, t, z):
+        eps2 = stacked_denoiser_apply(w, torch.cat([x, x]), torch.cat([t, t]), None, ie2,
+                                      fuse_stages=True).float()
+        e_c, e_u = eps2[:BG], eps2[BG:]
+        return e_u + cfg_scale * (e_c - e_u)
+
+    return denoise
+
+
 @torch.no_grad()
 def pack_generation_weights(vae, ddm=None, device=None) -> GenerationWeights:
-    """Pack the decoder (and denoiser) at their declared compute dtypes."""
+    """Pack the decoder (and denoiser) at their declared compute dtypes (a
+    class- or region-conditioned denoiser declares none: float32)."""
     dec = pack_decoder_weights(
         vae, decoder_dims_for(vae), _kernel_dtype(vae.decoder_dtype), device
     )
@@ -146,15 +204,15 @@ def ldm_generate(
     sampler: str = "ddim", meta: Optional[NormalizationMeta] = None,
     x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
     weights: Optional[GenerationWeights] = None, return_trajectory: bool = False,
-    cls_cond=None, region_points=None, cfg_scale=None, guidance_scale=None,
-    guidance_fn=None,
+    cls_cond=None, region_points=None, cfg_scale: Optional[float] = None,
+    guidance_scale: Optional[float] = None, guidance_fn=None,
 ) -> Dict[str, torch.Tensor]:
     """LDM-mode generation: reverse diffusion in the grasp latent space.
     Runs on the device of ``pc`` and of the models (the caller puts them
     there).
 
-    Without ``return_trajectory`` the whole sampler runs in one kernel
-    launch. With a
+    Unguided, without ``return_trajectory`` the whole sampler runs in one
+    kernel launch. With a
     ``GaussianDiffusion1D``: ``ddim_sampler_kernel`` (``sampler`` "ddim" or
     "ddpm"). With an ``ElucidatedDiffusion``: ``sampler == "dpmpp"`` runs
     DPM-Solver++(2M) (``dpmpp_sampler_kernel``), any other value the
@@ -171,20 +229,35 @@ def ldm_generate(
     first, DPM++ ``[N, ...]`` without it) and ``all_diffusion_grasps
     [S'', B, G, 4, 4]``: the states at :func:`trajectory_decode_indices`,
     decoded one at a time as x_0 is.
+
+    Conditioning and guidance (``graspldm_tpu.diffusion.guidance``):
+
+    * ``cls_cond [B*G]`` (scalars) or ``region_points [B*G, P, 3]`` for a
+      class- or region-conditioned denoiser (exactly its own condition;
+      anything else raises ``ValueError``);
+    * ``cfg_scale``: classifier-free guidance weight ``w`` (a conditioned
+      denoiser only): one doubled-batch evaluation per denoiser call;
+    * ``guidance_scale``: success guidance, each step's x0 estimate moved
+      uphill on the decoder's ``log p(success | z_h, z_pc)`` (one decoder
+      VJP per denoiser call); ``guidance_fn`` replaces that gradient with
+      a custom ``x0 [BG, 1, D] -> grad`` hook (scaled by
+      ``guidance_scale``, default 1). The two compose with CFG.
+
+    Any of the three runs the Python-loop sampler with one ``full_kernel``
+    launch per denoiser evaluation (DDIM/DDPM: one per step; DPM++: N;
+    churn: 2N - 1); the draws from ``generator`` are the same as on the
+    unguided path.
     """
-    unported = {
-        "cls_cond": cls_cond is not None,
-        "region_points": region_points is not None, "cfg_scale": cfg_scale is not None,
-        "guidance_scale": guidance_scale is not None, "guidance_fn": guidance_fn is not None,
-    }
-    if any(unported.values()):
-        raise NotImplementedError(
-            f"not ported yet: {[k for k, v in unported.items() if v]}"
-        )
     edm = isinstance(diffusion, ElucidatedDiffusion)
     if not edm and sampler not in ("ddim", "ddpm"):
         raise ValueError(f"sampler {sampler!r} needs an ElucidatedDiffusion; "
                          "GaussianDiffusion1D takes 'ddim' or 'ddpm'")
+    cond_kwargs = {k: torch.as_tensor(v, device=pc.device)
+                   for k, v in (("cls_cond", cls_cond), ("region_points", region_points))
+                   if v is not None}
+    _check_denoiser(ddm, cond_kwargs)
+    if cfg_scale is not None and not cond_kwargs:
+        raise ValueError("cfg_scale requires a conditioned denoiser (cls_cond or region_points)")
     weights = weights or pack_generation_weights(vae, ddm, device=pc.device)
     z_pc = vae.encode_pc(pc)
     z_pc_rep = z_pc.repeat_interleave(num_grasps, dim=0)
@@ -194,21 +267,19 @@ def ldm_generate(
         if edm:
             x_T = diffusion.sample_schedule(num_inference_steps)[0].item() * x_T
     input_emb = compute_input_emb(weights.denoiser.aux, z_pc_rep)
-    if edm and sampler == "dpmpp":
-        res = fused_sample_dpmpp(weights.denoiser, diffusion, input_emb, x_T,
-                                 num_sample_steps=num_inference_steps,
-                                 return_trajectory=return_trajectory)
-    elif edm:
-        res = fused_sample_churn(weights.denoiser, diffusion, input_emb, x_T,
-                                 num_sample_steps=num_inference_steps, noise=noise,
-                                 generator=generator, return_trajectory=return_trajectory)
+    extra = compute_extra_emb(weights.denoiser.aux, **cond_kwargs)
+    if guidance_fn is None and guidance_scale is not None:
+        guidance_fn = make_success_guidance(vae, z_pc_rep)
+    if guidance_fn is not None or cfg_scale is not None:
+        res = _guided_sample(weights.denoiser, diffusion, input_emb, extra, x_T, noise,
+                             generator, num_inference_steps, sampler, return_trajectory,
+                             cfg_scale, guidance_fn,
+                             1.0 if guidance_scale is None else float(guidance_scale))
     else:
-        res = fused_sample(
-            weights.denoiser, diffusion.schedule, input_emb, x_T,
-            num_inference_steps=num_inference_steps, sampler=sampler,
-            variance_type=diffusion.variance_type, noise=noise, generator=generator,
-            return_trajectory=return_trajectory,
-        )
+        if extra is not None:
+            input_emb = input_emb + extra[:, None, :]
+        res = _fused_sample(weights.denoiser, diffusion, input_emb, x_T, noise, generator,
+                            num_inference_steps, sampler, return_trajectory)
     x0, traj = res if return_trajectory else (res, None)
     result = decode_and_postprocess(weights, x0[:, 0, :], z_pc_rep, num_grasps, meta)
     if return_trajectory:
@@ -218,3 +289,43 @@ def ldm_generate(
             for i in trajectory_decode_indices(traj.shape[0]).tolist()
         ])
     return result
+
+
+def _fused_sample(w: PackedNet, diffusion, input_emb, x_T, noise, generator,
+                  num_inference_steps: int, sampler: str, return_trajectory: bool):
+    """The unguided sampler: one whole-trajectory kernel launch, or one
+    per-step kernel launch per step."""
+    if isinstance(diffusion, ElucidatedDiffusion) and sampler == "dpmpp":
+        return fused_sample_dpmpp(w, diffusion, input_emb, x_T,
+                                  num_sample_steps=num_inference_steps,
+                                  return_trajectory=return_trajectory)
+    if isinstance(diffusion, ElucidatedDiffusion):
+        return fused_sample_churn(w, diffusion, input_emb, x_T,
+                                  num_sample_steps=num_inference_steps, noise=noise,
+                                  generator=generator, return_trajectory=return_trajectory)
+    return fused_sample(
+        w, diffusion.schedule, input_emb, x_T, num_inference_steps=num_inference_steps,
+        sampler=sampler, variance_type=diffusion.variance_type, noise=noise,
+        generator=generator, return_trajectory=return_trajectory,
+    )
+
+
+def _guided_sample(w: PackedNet, diffusion, input_emb, extra, x_T, noise, generator,
+                   num_inference_steps: int, sampler: str, return_trajectory: bool,
+                   cfg_scale, guidance_fn, guidance_scale: float):
+    """The guided sampler: the Python loop of ``diffusion`` around
+    :func:`_guided_denoise_fn`. ``x_T [BG, L]`` and ``noise [S, BG, L]``
+    as the unguided path takes them."""
+    denoise = _guided_denoise_fn(w, input_emb, extra, cfg_scale)
+    x_T = x_T.float()[:, None, :]
+    noise = None if noise is None else noise.float()[:, :, None, :]
+    kw = dict(x_T=x_T, generator=generator, return_trajectory=return_trajectory,
+              guidance_fn=guidance_fn, guidance_scale=guidance_scale)
+    if isinstance(diffusion, ElucidatedDiffusion):
+        if sampler == "dpmpp":
+            return diffusion.sample_dpmpp(denoise, x_T.shape[0],
+                                          num_sample_steps=num_inference_steps, **kw)
+        return diffusion.sample_churn(denoise, x_T.shape[0], num_sample_steps=num_inference_steps,
+                                      noise=noise, **kw)
+    return diffusion.sample(denoise, x_T.shape[0], num_inference_steps=num_inference_steps,
+                            sampler=sampler, noise=noise, **kw)

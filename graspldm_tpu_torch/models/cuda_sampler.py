@@ -158,12 +158,6 @@ def sampler_plain(w: PackedNet, x_T, embin, trows, coefs, noise, clip: bool,
     return x
 
 
-def _cmax(w: PackedNet) -> int:
-    """Widest activation of the network (sizes the kernels' buffers)."""
-    d = w.dims
-    return max((w.w["init_w"].shape[1],) + tuple(d.cins) + tuple(d.block_channels))
-
-
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
@@ -224,7 +218,7 @@ def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
     rc = load_library().gl_ddim_sample(
         DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trows), _ptr(coefs),
         _ptr(noise), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L, d.emb_dim,
-        d.cond_channels, d.groups, _cmax(w), int(bool(clip)), float(clip_range),
+        d.cond_channels, d.groups, w.cmax, int(bool(clip)), float(clip_range),
         _stream(x_T),
     )
     _raise_on(rc, "ddim_sampler_kernel")
@@ -255,7 +249,7 @@ def ddim_step_apply(w: PackedNet, x, embin, trow, coef, noise_s=None, clip=True,
     rc = load_library().gl_ddim_step(
         DTYPE_CODE[w.dtype], _ptr(x), _ptr(embin), _ptr(trow), _ptr(coef), _ptr(noise_s),
         _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim, d.cond_channels, d.groups,
-        _cmax(w), int(bool(clip)), float(clip_range), _stream(x),
+        w.cmax, int(bool(clip)), float(clip_range), _stream(x),
     )
     _raise_on(rc, "ddim_step_kernel")
     DDIM_STEP_KERNEL.launches += 1
@@ -410,7 +404,7 @@ def dpmpp_sampler_apply(w: PackedNet, x_T, embin, trows, coefs, clamp=False) -> 
     rc = load_library().gl_dpmpp_sample(
         DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trows), _ptr(coefs),
         _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L, d.emb_dim, d.cond_channels,
-        d.groups, _cmax(w), int(bool(clamp)), _stream(x_T),
+        d.groups, w.cmax, int(bool(clamp)), _stream(x_T),
     )
     _raise_on(rc, "dpmpp_sampler_kernel")
     DPMPP_KERNEL.launches += 1
@@ -437,7 +431,7 @@ def dpmpp_step_apply(w: PackedNet, x, old, embin, trow, coef, clamp=False, out=N
     rc = load_library().gl_dpmpp_step(
         DTYPE_CODE[w.dtype], _ptr(x), _ptr(old), _ptr(embin), _ptr(trow), _ptr(coef),
         _ptr(w.flat), _ptr(w.layout), _ptr(out), _ptr(den_out), BG, L, d.emb_dim,
-        d.cond_channels, d.groups, _cmax(w), int(bool(clamp)), _stream(x),
+        d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x),
     )
     _raise_on(rc, "dpmpp_step_kernel")
     DPMPP_STEP_KERNEL.launches += 1
@@ -564,7 +558,7 @@ def churn_sampler_apply(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, 
     rc = load_library().gl_churn_sample(
         DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trowsA), _ptr(trowsB), _ptr(coefA),
         _ptr(coefB), _ptr(noise), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L,
-        d.emb_dim, d.cond_channels, d.groups, _cmax(w), int(bool(clamp)), _stream(x_T),
+        d.emb_dim, d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x_T),
     )
     _raise_on(rc, "churn_sampler_kernel")
     CHURN_KERNEL.launches += 1
@@ -592,7 +586,7 @@ def churn_step_apply(w: PackedNet, x, embin, trowA, trowB, coefA, coefB, noise_s
     rc = load_library().gl_churn_step(
         DTYPE_CODE[w.dtype], _ptr(x), _ptr(noise_s), _ptr(embin), _ptr(trowA), _ptr(trowB),
         _ptr(coefA), _ptr(coefB), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim,
-        d.cond_channels, d.groups, _cmax(w), int(bool(clamp)), _stream(x),
+        d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x),
     )
     _raise_on(rc, "churn_step_kernel")
     CHURN_STEP_KERNEL.launches += 1

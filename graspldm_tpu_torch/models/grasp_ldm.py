@@ -26,8 +26,11 @@ class GraspLatentDDM(TimeConditionedResNet1D):
 
     ``dtype`` is the declared compute dtype of the generation kernels
     (``None`` = float32); the module's own forward runs in its parameter
-    dtype.
+    dtype. ``conditioning`` names the extra condition a subclass takes
+    (:mod:`.conditioning`); None here.
     """
+
+    conditioning = None
 
     def __init__(self, latent_in_features: int = 4, pc_latent_size: int = 64,
                  block_channels: Sequence[int] = (32, 64, 128, 256),

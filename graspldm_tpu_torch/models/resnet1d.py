@@ -130,8 +130,14 @@ class TimeConditionedResNet1D(_ResNet1DBase):
             resnet_block_groups, dropout, emb_dim,
         )
 
-    def forward(self, x, time, z_cond: Optional[torch.Tensor] = None):
+    def forward(self, x, time, z_cond: Optional[torch.Tensor] = None,
+                extra_emb: Optional[torch.Tensor] = None):
+        """``extra_emb [B, emb]`` (the class / region embedding of the
+        conditioned denoisers) is added to the time embedding before the
+        broadcast over the conditioning channels."""
         latent_emb = self.time_mlp(time)
+        if extra_emb is not None:
+            latent_emb = latent_emb + extra_emb
         if self.input_emb_layers is not None:
             if z_cond is None:
                 raise ValueError("model is input-conditioned; z_cond required")

@@ -1,24 +1,30 @@
-"""Per-stage Hopper kernels for the conditional ResNet1D core.
+"""Hopper kernels for the conditional ResNet1D core.
 
-Counterpart of :mod:`graspldm_tpu.models.stacked_pallas`. Two kernels, built
-from ``csrc/resnet1d_blocks.cuh``:
+Counterpart of :mod:`graspldm_tpu.models.stacked_pallas`. Three kernels,
+built from ``csrc/resnet1d_blocks.cuh``:
 
 * ``stage_kernel`` replaces ``stacked_pallas.py:_stage_kernel``: one network
   stage (2 ResnetBlocks, residual linear attention, k3 projection to the
   next width) over a block of rows;
 * ``final_kernel`` replaces ``stacked_pallas.py:_final_kernel``: the final
-  ResnetBlock and the 1x1 head to one channel.
+  ResnetBlock and the 1x1 head to one channel;
+* ``full_kernel`` (``csrc/full_net.cu``) replaces
+  ``stacked_pallas.py:_full_kernel``: every stage, the final ResnetBlock and
+  the head in one launch, the activations kept in shared memory between
+  stages. :func:`stacked_denoiser_apply` runs it with ``fuse_stages=True``
+  (the guided samplers' denoiser), the stage chain otherwise (the decoder).
 
-Both are generic over L (4 for the denoiser, 16 for the VAE decoder) and the
+All are generic over L (4 for the denoiser, 16 for the VAE decoder) and the
 stage widths, and take float32 or bfloat16 activations and weights. What
-bounds them on the H100 and what the design does about it is in the note at
-the top of ``csrc/kernels.cu``.
+bounds them on the H100 and what the design does about it is in the notes
+at the top of ``csrc/kernels.cu`` and ``csrc/full_net.cu``.
 
 Beside each kernel is its plain PyTorch version (``stage_plain``,
-``final_plain``): same math, rounding to the compute dtype at the same
-points. A wrapper runs the plain version for a CPU tensor and launches the
-kernel for a CUDA tensor, raising if the launch fails; it never falls back.
-Each wrapper counts its kernel launches (``STAGE_KERNEL.launches``, ...).
+``final_plain``, ``full_plain``): same math, rounding to the compute dtype
+at the same points. A wrapper runs the plain version for a CPU tensor and
+launches the kernel for a CUDA tensor, raising if the launch fails; it
+never falls back. Each wrapper counts its kernel launches
+(``STAGE_KERNEL.launches``, ...).
 """
 
 from __future__ import annotations
@@ -35,11 +41,14 @@ __all__ = [
     "KernelCounter",
     "STAGE_KERNEL",
     "FINAL_KERNEL",
+    "FULL_KERNEL",
     "PackedNet",
     "stage_plain",
     "final_plain",
+    "full_plain",
     "stage_apply",
     "final_apply",
+    "full_apply",
     "init_conv",
     "stacked_denoiser_apply",
 ]
@@ -49,7 +58,8 @@ REC_SIZE = 40
 NET_HDR = 8
 RES_SLOTS = ("mlp_w", "mlp_b", "w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2")
 ATTN_SLOTS = ("attn_g", "wqkv", "wo", "bo", "out_g", "wp", "bp")
-AUX_KEYS = ("fourier_w", "time_w1", "time_b1", "time_w2", "time_b2", "input_w", "input_b")
+AUX_KEYS = ("fourier_w", "time_w1", "time_b1", "time_w2", "time_b2", "input_w", "input_b",
+            "cls_w", "cls_b", "region_w1", "region_b1", "region_w2", "region_b2")
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LN_EPS = 1e-5  # the kernel path's LayerNorm eps in every dtype (as stacked_pallas)
 
@@ -67,6 +77,7 @@ class KernelCounter:
 
 STAGE_KERNEL = KernelCounter("stage_kernel")
 FINAL_KERNEL = KernelCounter("final_kernel")
+FULL_KERNEL = KernelCounter("full_kernel")
 
 
 class PackedNet:
@@ -76,7 +87,8 @@ class PackedNet:
     aligned for vector loads); ``layout`` is the int64 offset table the
     kernels read (a header, then one record per stage and one for the
     final block). ``aux`` holds the float32 embedding (and head) weights
-    that run in plain PyTorch around the kernels.
+    that run in plain PyTorch around the kernels, a conditioned denoiser's
+    class / region embedding weights included.
     """
 
     def __init__(self, math_w: Dict[str, torch.Tensor], dims: DenoiserDims,
@@ -131,6 +143,12 @@ class PackedNet:
     def v(self, name: str) -> torch.Tensor:
         """A weight as float32 values (exact for both dtypes)."""
         return self.w[name].float()
+
+    @property
+    def cmax(self) -> int:
+        """Widest activation of the network (sizes the kernels' buffers)."""
+        d = self.dims
+        return max((self.w["init_w"].shape[1],) + tuple(d.cins) + tuple(d.block_channels))
 
 
 # ---------------------------------------------------------------------------
@@ -224,6 +242,17 @@ def final_plain(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tenso
     return _final_core(w, x.float().reshape(x.shape[0], L, -1), emb_sum(w, emb)).to(w.dtype)
 
 
+def full_plain(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``full_kernel``: ``x [BG, L*dim0]`` (the init conv's
+    output) -> ``[BG, L]``, the chain of :func:`stage_plain` over every stage
+    and :func:`final_plain`, rounded at the same points."""
+    L, esum = w.dims.seq_len, emb_sum(w, emb)
+    h = x.float().reshape(x.shape[0], L, -1)
+    for i in range(len(w.dims.block_channels)):
+        h = _stage_core(w, i, h, esum)
+    return _final_core(w, h, esum).to(w.dtype)
+
+
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
@@ -302,6 +331,28 @@ def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tenso
     return out
 
 
+def full_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """The whole core after the init conv, one launch: ``x [BG, L*dim0]``
+    with FiLM input ``emb [BG, Ce*E]`` -> ``[BG, L]``."""
+    if not _on_cuda(x):
+        return full_plain(w, x, emb)
+    from ..cuda_build import load_library
+
+    d = w.dims
+    L, BG = d.seq_len, x.shape[0]
+    _check("x", x, (BG, L * w.w["init_w"].shape[1]), w.dtype, w.device)
+    _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
+    out = torch.empty((BG, L), dtype=w.dtype, device=x.device)
+    rc = load_library().gl_full_forward(
+        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG,
+        L, d.emb_dim, d.cond_channels, d.groups, w.cmax,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    _raise_on(rc, "full_kernel")
+    FULL_KERNEL.launches += 1
+    return out
+
+
 def init_conv(w: PackedNet, x: torch.Tensor) -> torch.Tensor:
     """Init conv (1 -> dim0 channels, k7) on ``x [BG, L]`` (rounded to the
     compute dtype first) -> float32 values ``[BG, L, dim0]`` rounded to it.
@@ -314,14 +365,23 @@ def init_conv(w: PackedNet, x: torch.Tensor) -> torch.Tensor:
 
 def stacked_denoiser_apply(
     w: PackedNet, x: torch.Tensor, t: Optional[torch.Tensor], z_cond: Optional[torch.Tensor],
-    input_emb: Optional[torch.Tensor] = None,
+    input_emb: Optional[torch.Tensor] = None, fuse_stages: bool = False,
 ) -> torch.Tensor:
-    """Core forward through the stage kernels: ``x [BG, 1, L]`` -> ``[BG, 1, L]``
-    in the compute dtype. ``t=None`` for the non-temporal decoder core;
-    ``input_emb`` (``compute_input_emb``) may be precomputed."""
+    """Core forward: ``x [BG, 1, L]`` -> ``[BG, 1, L]`` in the compute dtype.
+
+    ``t=None`` for the non-temporal decoder core; ``input_emb``
+    (``compute_input_emb``) may be precomputed, and a conditioned
+    denoiser's class / region embedding (``compute_extra_emb``) is folded
+    into it by the caller, as the JAX package's pipeline does.
+    The FiLM input and the init conv run in plain PyTorch, as XLA runs
+    them in the JAX package; then ``fuse_stages=False`` launches one
+    ``stage_kernel`` per stage and ``final_kernel``, ``True`` one
+    ``full_kernel``."""
     emb = compute_emb_s_stacked(w.aux, t, z_cond, input_emb).to(w.dtype)
     BG = x.shape[0]
     h = init_conv(w, x[:, 0, :]).reshape(BG, -1).to(w.dtype)
+    if fuse_stages:
+        return full_apply(w, h, emb)[:, None, :]
     for i in range(len(w.dims.block_channels)):
         h = stage_apply(w, i, h, emb)
     return final_apply(w, h, emb)[:, None, :]

@@ -1,8 +1,8 @@
 """Denoiser/decoder weight packing and the embedding helpers around the kernels.
 
 Counterpart of the helpers of :mod:`graspldm_tpu.models.stacked_denoiser`
-(``compute_time_emb``, ``compute_input_emb``, ``compute_emb_s_stacked``)
-plus :func:`pack_math_weights`, which turns a ResNet1D core's parameters
+(``compute_time_emb``, ``compute_input_emb``, ``compute_extra_emb``,
+``compute_emb_s_stacked``) plus :func:`pack_math_weights`, which turns a ResNet1D core's parameters
 into the kernels' operands in their *math* form: weight-standardized k3
 conv taps as ``[3*Cin, Cout]`` matrices (standardized once, as
 ``graspldm_tpu/models/fused_denoiser.py:_standardize`` does), GroupNorm
@@ -27,6 +27,7 @@ __all__ = [
     "pack_math_weights",
     "compute_time_emb",
     "compute_input_emb",
+    "compute_extra_emb",
     "compute_emb_s_stacked",
 ]
 
@@ -65,7 +66,12 @@ def _conv3_matrix(w: torch.Tensor) -> torch.Tensor:
 
 @torch.no_grad()
 def pack_math_weights(net, dims: DenoiserDims) -> Dict[str, torch.Tensor]:
-    """A ResNet1D / TimeConditionedResNet1D core -> float32 kernel operands."""
+    """A ResNet1D / TimeConditionedResNet1D core -> float32 kernel operands.
+
+    A class- or region-conditioned denoiser (:mod:`.conditioning`) also
+    carries its extra embedding's weights (``cls_w``/``cls_b`` or
+    ``region_w1``/``b1``/``w2``/``b2``, ``[in, out]``) for
+    :func:`compute_extra_emb`."""
     if any(m.res_conv.__class__ is not torch.nn.Identity
            for m in [*(b[j] for b in net.blocks for j in (0, 1)), net.final_res_block]):
         raise ValueError("width-changing ResnetBlocks are not produced by this core")
@@ -79,6 +85,12 @@ def pack_math_weights(net, dims: DenoiserDims) -> Dict[str, torch.Tensor]:
         w["time_w2"], w["time_b2"] = _linear_t(time_mlp[3]), time_mlp[3].bias.float()
     lin = net.input_emb_layers[0]
     w["input_w"], w["input_b"] = _linear_t(lin), lin.bias.float()
+    if getattr(net, "cls_embed", None) is not None:
+        w["cls_w"], w["cls_b"] = _linear_t(net.cls_embed), net.cls_embed.bias.float()
+    if getattr(net, "region_mlp_1", None) is not None:
+        for j in (1, 2):
+            lin = getattr(net, f"region_mlp_{j}")
+            w[f"region_w{j}"], w[f"region_b{j}"] = _linear_t(lin), lin.bias.float()
     w["init_w"] = net.init_conv.weight.float()[:, 0, :].t().contiguous()  # [7, dim0]
     w["init_b"] = net.init_conv.bias.float()
 
@@ -123,9 +135,25 @@ def compute_input_emb(w: Dict[str, torch.Tensor], z_cond: torch.Tensor) -> torch
     return F.silu(z_cond.float() @ w["input_w"] + w["input_b"])
 
 
+def compute_extra_emb(w: Dict[str, torch.Tensor], cls_cond: Optional[torch.Tensor] = None,
+                      region_points: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """Step-invariant class / region embedding ``[B, emb]`` (fp32) of a
+    conditioned denoiser: ``silu(Dense(cls))`` for ``cls_cond [B]``, or
+    ``silu(max_P(Dense(silu(Dense(pts)))))`` for ``region_points [B, P, 3]``.
+    None without a condition."""
+    if cls_cond is not None:
+        return F.silu(cls_cond.reshape(-1, 1).float() @ w["cls_w"] + w["cls_b"])
+    if region_points is not None:
+        h = F.silu(region_points.float() @ w["region_w1"] + w["region_b1"])
+        return F.silu((h @ w["region_w2"] + w["region_b2"]).amax(dim=-2))
+    return None
+
+
 def compute_emb_s_stacked(w, t: Optional[torch.Tensor], z_cond=None, input_emb=None):
     """FiLM input ``silu(time_emb + input_emb)`` flattened to ``[B, Ce*emb]``
-    (``t=None``: the non-temporal decoder core, ``silu(input_emb)``)."""
+    (``t=None``: the non-temporal decoder core, ``silu(input_emb)``). A
+    conditioned denoiser's :func:`compute_extra_emb` is folded into
+    ``input_emb`` (``input_emb + extra[:, None, :]``) by the caller."""
     if input_emb is None:
         input_emb = compute_input_emb(w, z_cond)
     latent = input_emb if t is None else compute_time_emb(w, t)[:, None, :] + input_emb

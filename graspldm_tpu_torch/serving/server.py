@@ -10,7 +10,8 @@ on the device.
 
 API:
   * ``POST /v1/generate`` — body ``{"points": [[x, y, z], ...],
-    "num_grasps": int}`` -> ``{"grasps": [G, 4, 4], "grasp_tmrp": [G, 6],
+    "num_grasps": int, "cls": float?}`` (``cls``: the class label, for a
+    class-conditioned model only) -> ``{"grasps": [G, 4, 4], "grasp_tmrp": [G, 6],
     "confidence": [G], "qualities": [G, nq]?, "num_grasps": G}``.
   * ``GET /healthz`` — liveness.
   * ``GET /v1/stats`` — batcher counters + latency percentiles.
@@ -55,13 +56,23 @@ def make_batch_generate_from_parts(
     no device named this raises; ``device="cpu"`` runs the kernels' plain
     versions) and their kernel weights are packed once here;
     normalization (per-object centering) runs in the request path, so the
-    host hands over raw metric points. Class-conditioned serving is not
-    ported yet: a ``cls`` field is refused.
+    host hands over raw metric points.
+
+    The conditioning is the denoiser's own (``ddm.conditioning``). A
+    class-conditioned one takes each request's ``cls``, repeated over its
+    ``num_grasps`` rows: then every request needs ``cls``, and without
+    conditioning a ``cls`` is refused. A region-conditioned denoiser needs
+    per-request region point sets, which this API does not carry: it is
+    refused here.
     """
     from ..flagship import resolve_device
     from ..inference.pipeline import ldm_generate, pack_generation_weights, vae_generate
     from ..utils.normalization import normalize_pc_and_grasps
 
+    conditioning = ddm.conditioning if ddm is not None else None
+    if conditioning not in (None, "class"):
+        raise ValueError("serving supports unconditional or class-conditioned models, "
+                         f"got conditioning={conditioning!r}")
     if ddm is not None and diffusion is None:
         raise ValueError("LDM serving needs the diffusion process")
     device = resolve_device(device)
@@ -74,10 +85,12 @@ def make_batch_generate_from_parts(
     lock = threading.Lock()  # the batcher's worker is single, but guard anyway
 
     def batch_generate(pcs: np.ndarray, cls: Optional[np.ndarray]) -> Dict:
-        if cls is not None:
+        if cls is not None and conditioning != "class":
             raise ValueError(
                 "this model is not class-conditioned; drop the 'cls' field"
             )
+        if cls is None and conditioning == "class":
+            raise ValueError("class-conditioned model: every request needs 'cls'")
         with lock, torch.no_grad():
             pc = torch.as_tensor(pcs, dtype=torch.float32, device=device)
             dummy = torch.zeros((pc.shape[0], 1, 6), device=device)
@@ -86,10 +99,12 @@ def make_batch_generate_from_parts(
                 out = vae_generate(vae, pc_n, num_grasps, generator, meta=meta,
                                    weights=weights)
             else:
+                cls_cond = None if cls is None else torch.as_tensor(
+                    cls, dtype=torch.float32, device=device).repeat_interleave(num_grasps)
                 out = ldm_generate(
                     vae, ddm, diffusion, pc_n, num_grasps, generator,
                     num_inference_steps=num_inference_steps, sampler=sampler,
-                    meta=meta, weights=weights,
+                    meta=meta, weights=weights, cls_cond=cls_cond,
                 )
             return {k: v.float().cpu().numpy() for k, v in out.items()}
 

@@ -3,7 +3,8 @@
 Takes the variable trees of :mod:`graspldm_tpu` models as nested dicts of
 numpy arrays (``params``, ``batch_stats``, ``constants``), exactly as
 ``jax.tree.map(np.asarray, variables)`` gives them, and returns the port's
-``state_dict`` for :class:`..models.GraspCVAE` / :class:`..models.GraspLatentDDM`.
+``state_dict`` for :class:`..models.GraspCVAE` / :class:`..models.GraspLatentDDM`
+and the class- / region-conditioned denoisers.
 It is the inverse of :mod:`graspldm_tpu.utils.torch_convert`, so a round
 trip through that converter checks both directions.
 
@@ -18,7 +19,12 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-__all__ = ["grasp_ldm_state_dict", "grasp_cvae_state_dict"]
+__all__ = [
+    "grasp_ldm_state_dict",
+    "class_conditioned_ldm_state_dict",
+    "region_conditioned_ldm_state_dict",
+    "grasp_cvae_state_dict",
+]
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -138,6 +144,23 @@ def grasp_ldm_state_dict(variables: Mapping) -> StateDict:
     sd: StateDict = {}
     consts = variables.get("constants", {}).get("denoiser", {})
     _resnet1d(sd, "", variables["params"]["denoiser"], consts)
+    return sd
+
+
+def class_conditioned_ldm_state_dict(variables: Mapping) -> StateDict:
+    """ClassConditionedGraspLatentDDM variables -> the port module's state
+    dict: the shared core as :func:`grasp_ldm_state_dict`, plus ``cls_embed``."""
+    sd = grasp_ldm_state_dict(variables)
+    _linear(sd, "cls_embed", variables["params"]["denoiser"]["cls_embed"])
+    return sd
+
+
+def region_conditioned_ldm_state_dict(variables: Mapping) -> StateDict:
+    """RegionConditionedGraspLatentDDM variables -> the port module's state
+    dict: the shared core, plus ``region_mlp_1`` / ``region_mlp_2``."""
+    sd = grasp_ldm_state_dict(variables)
+    for name in ("region_mlp_1", "region_mlp_2"):
+        _linear(sd, name, variables["params"]["denoiser"][name])
     return sd
 
 

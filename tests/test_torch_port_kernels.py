@@ -34,9 +34,10 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def _counts():
-    return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL, cs.SAMPLER_KERNEL,
-                                      cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL,
-                                      cs.DPMPP_STEP_KERNEL, cs.CHURN_STEP_KERNEL))
+    return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL,
+                                      cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL, cs.CHURN_KERNEL,
+                                      cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
+                                      cs.CHURN_STEP_KERNEL))
 
 
 @pytest.fixture(scope="module")
@@ -66,7 +67,9 @@ def test_port_never_imports_jax():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'graspldm_tpu'))\n"
         "assert not bad, bad\n"
-        "assert len(mods) >= 20, mods\n"
+        "assert len(mods) >= 22, mods\n"
+        "for need in ('models.conditioning', 'diffusion.guidance'):\n"
+        "    assert p.__name__ + '.' + need in mods, need\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
@@ -93,6 +96,9 @@ def test_wrappers_run_plain_versions_on_cpu(nets):
                                rtol=0, atol=0)
     h = torch.randn(5, d.seq_len * d.block_channels[-1], generator=g)
     torch.testing.assert_close(sc.final_apply(w, h, emb), sc.final_plain(w, h, emb),
+                               rtol=0, atol=0)
+    x0 = torch.randn(5, d.seq_len * d.cins[0], generator=g)
+    torch.testing.assert_close(sc.full_apply(w, x0, emb), sc.full_plain(w, x0, emb),
                                rtol=0, atol=0)
     assert _counts() == before
 
@@ -313,6 +319,34 @@ def test_stage_and_final_kernels_match_plain_on_card(cuda, nets, dtype):
     torch.cuda.synchronize()
     ref = sc.final_plain(w, h, emb)
     torch.testing.assert_close(got.float(), ref.float(), **_rel(TOLS[dtype], ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [4, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_full_kernel_matches_plain_and_the_stage_chain_on_card(cuda, nets, dtype, L):
+    """``full_kernel`` (one launch) against ``full_plain`` and against the
+    chain of 4 ``stage_kernel`` + ``final_kernel`` launches on the same
+    operands, at the fpc and ppc denoisers with a ragged row count. Each
+    row is reduced in the same order in both kernels: bitwise equal."""
+    math, dims = nets["den"][L]
+    w = sc.PackedNet(math, dims, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(12)
+    BG = 37
+    x = torch.randn(BG, dims.seq_len * dims.cins[0], generator=g, device=cuda).to(dtype)
+    emb = torch.randn(BG, dims.cond_channels * dims.emb_dim, generator=g, device=cuda).to(dtype)
+    before = sc.FULL_KERNEL.launches
+    got = sc.full_apply(w, x, emb)
+    assert sc.FULL_KERNEL.launches == before + 1
+    h = x
+    for i in range(len(dims.block_channels)):
+        h = sc.stage_apply(w, i, h, emb)
+    chain = sc.final_apply(w, h, emb)
+    torch.cuda.synchronize()
+    ref = sc.full_plain(w, x, emb)
+    assert got.shape == (BG, dims.seq_len) and got.dtype == dtype
+    torch.testing.assert_close(got.float(), ref.float(), **_rel(TOLS[dtype], ref))
+    assert torch.equal(got, chain)
 
 
 @pytest.mark.cuda

@@ -115,11 +115,16 @@ def test_vae_generate_matches_jax(m):
 
 
 @pytest.mark.parametrize("option", [
-    dict(cfg_scale=2.0), dict(guidance_scale=1.0),
+    dict(cfg_scale=2.0), dict(cfg_scale=2.0, guidance_scale=1.0),
     dict(cls_cond=torch.zeros(B * G)), dict(region_points=torch.zeros(B * G, 8, 3)),
 ])
 def test_unported_generation_options_raise(m, option):
-    with pytest.raises(NotImplementedError):
+    """What the unconditioned flagship refuses, as the JAX package does
+    (``pipeline.py:_resolve_denoiser_impl``, ``_make_cfg_denoise_fn``):
+    classifier-free guidance needs a conditioned denoiser, and this one
+    takes no class or region. (Conditioning and guidance are ported:
+    ``tests/test_torch_port_guided_generate.py``.)"""
+    with pytest.raises(ValueError):
         ldm_generate(m["vae"], m["ddm"], m["diff"], m["pc_n"], G, num_inference_steps=2,
                      **option)
 
@@ -133,9 +138,14 @@ def test_edm_sampler_needs_elucidated_diffusion(m):
                          sampler=sampler)
 
 
-@pytest.mark.parametrize("option", [dict(conditioning="region"), dict(conditioning="class")])
+@pytest.mark.parametrize("option", [dict(conditioning="region", cond_dropout=0.1),
+                                    dict(conditioning="text")])
 def test_unported_flagship_options_raise(option):
-    with pytest.raises(NotImplementedError):
+    """What ``build_flagship`` still refuses: conditioning dropout is a
+    training option, and the config has no such field until training is
+    ported; a conditioning other than None / "class" / "region" is unknown.
+    (The conditioned flagships are ported: ``tests/test_torch_port_guidance.py``.)"""
+    with pytest.raises(TypeError if "cond_dropout" in option else ValueError):
         build_flagship(FlagshipConfig(**option), device="cpu")
 
 
