@@ -53,19 +53,31 @@ any phase fails (every phase runs; the failures are listed at the end):
    (128 region points) with ``cfg_scale=2`` (DPM++ 32, one cloud x 1024
    grasps); each call twice, its wall time split into denoiser launches,
    guidance VJPs and the rest; and 3 requests with a ``cls`` field to a
-   class-conditioned ``GraspServer``. Before the main paths,
+   class-conditioned ``GraspServer``; the success-guided calls take the
+   decoder's VJP in bf16, as the JAX package does. Before the main paths,
    ``full_kernel`` is held against ``full_plain`` and against the chain of
    4 ``stage_kernel`` + ``final_kernel`` launches on the same operands, in
    float32 and bfloat16, at fpc BG = 4096 and 8192 (CFG), ppc BG = 1024
    and 2048 and a ragged BG = 1021, and once on a class-conditioned pack;
    the three are timed at the main path's shapes;
-8. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn, a DDIM
+8. the PVCNN2 encoder path: ``fps_kernel`` against its plain version
+   (equal indices) at the four SA shapes of ``PVCNN2Encoder`` (N -> M =
+   1024 -> 1024, 1024 -> 256, 256 -> 64, 64 -> 16) at B = 16 and 128, at a
+   ragged N and on clouds with duplicated points, each timed; then
+   ``PVCNN2Encoder()`` at its defaults (seeded weights, BatchNorm running
+   statistics drawn from the seed) on B = 16 clouds x 1024 points in
+   float32, twice (4 ``fps_kernel`` launches a forward), then timed and
+   profiled (device time by kernel); then the same weights on 2 of the
+   clouds on the card against the CPU, selections first (see
+   ``TOL_PVCNN2``), and once more with TF32 convolutions, a control the
+   limit must fail;
+9. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn, a DDIM
    trajectory; class CFG DDIM, success-guided DDPM, success-guided churn,
    region CFG DPM++, and CFG with success guidance) on the card against
    the same calls on the CPU, where every kernel wrapper runs its plain
    version.
 
-The kernel launch counts are zeroed just before each main path (4 to 7)
+The kernel launch counts are zeroed just before each main path (4 to 8)
 and read just after it; every call inside checks its exact counts, and
 each launch is booked to the configuration (fpc or ppc) of its call. The
 script prints its wall time, then the kernels' JSON record, then as its
@@ -83,6 +95,7 @@ import threading
 import time
 import traceback
 import urllib.request
+from unittest import mock
 
 import numpy as np
 import torch
@@ -156,6 +169,35 @@ TOL_BF16_STEP_MEAN = {"ddim": 2.0 ** -19, "dpmpp": 2.0 ** -19, "churn": 2.0 ** -
 # the sampler's steps reorder sums; grasp entries are O(1).
 TOL_E2E = 1e-3
 
+# PVCNN2Encoder's set-abstraction stages (N -> M), each one fps_kernel launch
+FPS_SHAPES = ((1024, 1024), (1024, 256), (256, 64), (64, 16))
+FPS_B = (16, 128)
+PVCNN2_B, PVCNN2_CHECK_B = 16, 2
+# PVCNN2Encoder, card vs CPU (float32, TF32 off), on the same weights and
+# clouds. The discrete selections are compared first, and the CPU run then
+# follows the card's selections, so the features compare the arithmetic:
+# * FPS and ball query do the same IEEE float32 operations (subtract,
+#   multiply, add, compare; fps_kernel without FMA contraction) on the same
+#   raw coordinates on both sides, so their indices must be equal: no flip
+#   is allowed;
+# * the 3-NN picks come from the |a|^2 - 2ab + |b|^2 expansion, whose
+#   products are summed in another order on the card: a pick may flip
+#   only at a true near-tie, where the two candidates' exact (float64)
+#   squared distances differ by at most NEAR_TIE_3NN;
+# * the voxel coordinates (mean and radius are reductions) must agree to
+#   TOL_VOX voxel units, and avg_voxelize's rounding may flip only where
+#   the coordinate lies within TOL_VOX of a half-integer.
+# Every flip is counted and printed. The output must then agree to
+# TOL_PVCNN2 of its largest magnitude: PVConv's Conv3d (cuDNN vs the CPU),
+# the 1x1 convolutions and BatchNorm reorder float32 sums through 8 PVConvs
+# and 8 SA/FP MLPs; on the H100 this read 9.0e-6. The same run with TF32
+# convolutions, the nearest lower precision, read 1.1e-3 (both NVIDIA H100
+# 80GB HBM3, 700 W). 1e-4 lies 11x from each, and the phase runs that TF32
+# control and fails unless it lands above the limit.
+NEAR_TIE_3NN = 1e-5
+TOL_VOX = 1e-4
+TOL_PVCNN2 = 1e-4
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense) for the
 # bound: bf16 products on the tensor cores, fp32 on the CUDA cores, and HBM
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -163,6 +205,7 @@ PEAK_BYTES = 3.35e12
 
 _PS = "graspldm_tpu/models/pallas_sampler.py"
 REPLACES = {
+    "fps_kernel": "graspldm_tpu/ops/pallas_fps.py:27",
     "stage_kernel": "graspldm_tpu/models/stacked_pallas.py:900",
     "final_kernel": "graspldm_tpu/models/stacked_pallas.py:914",
     "full_kernel": "graspldm_tpu/models/stacked_pallas.py:826",
@@ -179,6 +222,7 @@ REPLACES = {
                          f"{_PS}:210 _stage0_dpmpp_kernel, {_PS}:399 _final_churn_b_kernel",
 }
 SOURCES = {
+    "fps_kernel": "graspldm_tpu_torch/csrc/fps.cu",
     "stage_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "final_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "full_kernel": "graspldm_tpu_torch/csrc/full_net.cu",
@@ -221,10 +265,11 @@ def cuda_ms(fn, reps: int) -> float:
 def counters():
     from graspldm_tpu_torch.models import cuda_sampler as cs
     from graspldm_tpu_torch.models import stacked_cuda as sc
+    from graspldm_tpu_torch.ops import cuda_fps
 
     return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL, cs.SAMPLER_KERNEL,
             cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
-            cs.CHURN_STEP_KERNEL)
+            cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL)
 
 
 def counts() -> dict:
@@ -1206,6 +1251,274 @@ def reference_phase(run: Run, dev) -> None:
                 raise AssertionError(f"{sampler} {k}: card and CPU disagree")
 
 
+# ---------------------------------------------------------------------------
+# the PVCNN2 encoder path
+# ---------------------------------------------------------------------------
+
+
+def fps_bound(B_: int, N: int, M: int) -> dict:
+    """9 float32 operations per point and step (3 sub, 3 mul, 2 add, 1 min)
+    over M - 1 steps; the coordinates read once, the int64 picks written
+    once."""
+    return bound(9.0 * B_ * (M - 1) * N, 12 * B_ * N + 8 * B_ * M, "fp32")
+
+
+def fps_kernel_phase(run: Run, dev) -> None:
+    """fps_kernel against its plain version (indices equal) at the SA
+    shapes, a ragged N and duplicated points; both timed at the SA shapes."""
+    from graspldm_tpu_torch.ops.cuda_fps import fps_apply, fps_plain
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    checked, timed = [], []
+
+    def hold(label: str, coords: torch.Tensor, M: int, time_it: bool) -> None:
+        B_, N = coords.shape[:2]
+        got, want = fps_apply(coords, M), fps_plain(coords, M)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = (got - want).abs().max().item()
+        checked.append(dict(B=B_, N=N, M=M, what=label, max_abs_err=err))
+        line = f"  {label} B={B_}, N={N} -> M={M}: indices {'equal' if same else 'DIFFER'}"
+        if not same:
+            run.failures.append(f"fps_kernel {label} B={B_} N={N} M={M}: indices differ")
+        if time_it:
+            k_ms = cuda_ms(lambda: fps_apply(coords, M), 20)
+            p_ms = cuda_ms(lambda: fps_plain(coords, M), 2)
+            b = fps_bound(B_, N, M)
+            timed.append(dict(B=B_, N=N, M=M, ms=k_ms, plain_ms=p_ms, **b))
+            line += (f"; kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound {b['bound_ms']:.2e} ms "
+                     f"({b['bound_by']})")
+        log(line)
+
+    log("[kernels] fps_kernel vs its plain version (float32 coords, int64 picks)")
+    for b_ in FPS_B:
+        for N, M in FPS_SHAPES:
+            hold("SA shape", torch.randn((b_, N, 3), generator=gen, device=dev), M, True)
+    hold("ragged", torch.randn((PVCNN2_B, 1000, 3), generator=gen, device=dev), 250, False)
+    base = torch.randn((PVCNN2_B, 256, 3), generator=gen, device=dev)
+    perm = torch.randperm(1024, generator=gen, device=dev)
+    hold("duplicated points (x4)", base.repeat(1, 4, 1)[:, perm].contiguous(), 1024, False)
+    one = torch.randn((PVCNN2_B, 1, 3), generator=gen, device=dev).repeat(1, 64, 1)
+    hold("one point x64", one, 64, False)
+    main = [t for t in timed if t["B"] == PVCNN2_B]
+    b = bound(sum(t["flops"] for t in main), sum(t["bytes"] for t in main), "fp32")
+    log(f"  one PVCNN2Encoder forward's 4 launches at B={PVCNN2_B}: kernel "
+        f"{sum(t['ms'] for t in main):.3f} ms, plain {sum(t['plain_ms'] for t in main):.3f} ms, "
+        f"bound {b['bound_ms']:.2e} ms ({b['bound_by']}; the M steps are a chain of dependent "
+        f"block-wide argmaxes, which the bound does not count)")
+    run.record("fps_kernel", "pvcnn2", None, PVCNN2_B, None, "fp32",
+               what=f"the 4 launches of one PVCNN2Encoder forward at B={PVCNN2_B} "
+                    f"(N -> M: {', '.join(f'{n}->{m}' for n, m in FPS_SHAPES)}); per launch "
+                    "in timed_at",
+               err=max(c["max_abs_err"] for c in checked), ms=sum(t["ms"] for t in main),
+               plain_ms=sum(t["plain_ms"] for t in main), bound_ms=b["bound_ms"],
+               bound_by=b["bound_by"], timed_at=timed, err_checked_at=checked,
+               launches_per_call=len(FPS_SHAPES))
+
+
+def build_pvcnn2(dev):
+    """``PVCNN2Encoder()`` at its defaults with weights from a seeded
+    generator and BatchNorm running statistics and affines drawn from it
+    (not the identity)."""
+    from torch import nn
+
+    from graspldm_tpu_torch.flagship import init_params_
+    from graspldm_tpu_torch.models import PVCNN2Encoder
+
+    gen = torch.Generator().manual_seed(SEED + 30)
+    enc = init_params_(PVCNN2Encoder(), gen)
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+                m.weight.uniform_(0.5, 1.5, generator=gen)
+                m.bias.normal_(0.0, 0.1, generator=gen)
+    return enc.to(dev).eval()
+
+
+def pvcnn2_phase(run: Run, enc, dev) -> None:
+    """The main path: ``PVCNN2Encoder`` on B = 16 clouds x 1024 points,
+    twice, then timed; 4 fps_kernel launches per forward."""
+    pc_n, _ = _normalized(dev, PVCNN2_B, SEED + 31)
+    log(f"[pvcnn2] PVCNN2Encoder (defaults: SA {[m for _, m in FPS_SHAPES]} centres, "
+        f"out {enc.out_layer[1].out_features}), B={PVCNN2_B} x N={N_POINTS}, float32 (TF32 off)")
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = enc(pc_n)
+        torch.cuda.synchronize()
+        log(f"  call {i + 1}: wall {time.perf_counter() - t0:.3f} s"
+            + (" (first call: cuDNN set-up included)" if i == 0 else ""))
+        if tuple(out.shape) != (PVCNN2_B, 32) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"encoder output {tuple(out.shape)}, finite "
+                                 f"{bool(torch.isfinite(out).all())}")
+        run.expect_more("pvcnn2 encoder", "pvcnn2", fps_kernel=len(FPS_SHAPES))
+    with torch.no_grad():
+        ms = cuda_ms(lambda: enc(pc_n), 3)
+    log(f"  forward {ms:.3f} ms (CUDA events, mean of 3); peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; |z| max "
+        f"{out.abs().max().item():.3f}")
+    run.expect_more("pvcnn2 encoder timing", "pvcnn2", fps_kernel=4 * len(FPS_SHAPES))
+    with torch.no_grad():
+        device_time_by_kernel(lambda: enc(pc_n), ms)
+    run.expect_more("pvcnn2 encoder profile", "pvcnn2", fps_kernel=len(FPS_SHAPES))
+
+
+def device_time_by_kernel(fn, event_ms: float, top: int = 10) -> None:
+    """One call of ``fn`` under ``torch.profiler``: device time by kernel,
+    largest first, and its sum against ``event_ms`` (the call's time from
+    CUDA events, idle gaps included): the device's busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    # the kernels' own rows only: a CPU op's row repeats its kernels' time
+    rows = sorted(((e.self_device_time_total, e.key) for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA), reverse=True)
+    total = sum(t for t, _ in rows) / 1e3  # ms
+    if total <= 0:
+        log("  profiler: no device time recorded")
+        return
+    log(f"  profiled call: kernels {total:.3f} ms on the device, {100 * total / event_ms:.0f} % "
+        f"of the {event_ms:.3f} ms forward (busy share); by kernel:")
+    for t, name in rows[:top]:
+        log(f"    {t / 1e3:8.3f} ms {100 * t / 1e3 / total:5.1f} %  {name[:100]}")
+
+
+@contextlib.contextmanager
+def selections(record: list, replay: list | None, flips: dict):
+    """Wrap the PVCNN2 path's discrete selections for the duration. Without
+    ``replay``, each call's result is appended to ``record`` (the card's
+    run). With it, each call checks its own result against the card's (the
+    same call order), counts flips under the rules at ``TOL_PVCNN2``, raises
+    on any other difference, and goes on with the card's selection (with
+    the CPU's own distances for 3-NN)."""
+    from graspldm_tpu_torch.models import pvcnn as pv
+    from graspldm_tpu_torch.models import pvcnn2 as pv2
+    from graspldm_tpu_torch.ops import neighborhood as nb
+
+    fps, bq = pv2.furthest_point_sample, pv2.ball_query
+    vox, nn3 = pv.normalize_coords_for_voxelization, nb.three_nn
+
+    def take(kind: str, own):
+        if replay is None:
+            record.append((kind, own))
+            return None
+        k, card = replay.pop(0)
+        if k != kind:
+            raise AssertionError(f"selection order differs: card {k}, CPU {kind}")
+        return card
+
+    def exact(kind: str, fn):
+        def wrapped(*a, **kw):
+            own = fn(*a, **kw)
+            card = take(kind, own)
+            if card is not None and not torch.equal(own, card.cpu()):
+                n = int((own != card.cpu()).sum())
+                raise AssertionError(f"{kind}: {n} indices differ between card and CPU")
+            return own
+        return wrapped
+
+    def three_nn(points, centers):
+        own_d, own_i = nn3(points, centers)
+        card = take("3-NN", (own_d, own_i))
+        if card is None:
+            return own_d, own_i
+        ci = card[1].cpu()
+        diff = own_i != ci
+        if bool(diff.any()):
+            p64, c64 = points.double(), centers.double()
+            d64 = ((p64[:, :, None, :] - c64[:, None, :, :]) ** 2).sum(-1)  # [B, N, M]
+            gap = (d64.gather(-1, own_i) - d64.gather(-1, ci)).abs()[diff].max().item()
+            flips["3-NN"] += int(diff.sum())
+            log(f"  3-NN: {int(diff.sum())} picks flip, exact distance gaps up to {gap:.2e} "
+                f"(near-tie limit {NEAR_TIE_3NN:.0e})")
+            if gap > NEAR_TIE_3NN:
+                raise AssertionError("3-NN: a pick flips away from a near-tie")
+        d = nb.pairwise_sq_dists(points, centers).gather(-1, ci).clamp(1e-10, 1e10)
+        return d, ci
+
+    def vox_coords(coords, resolution, normalize=True):
+        own = vox(coords, resolution, normalize=normalize)
+        card = take("voxel coords", own)
+        if card is None:
+            return own
+        card = card.cpu()
+        err = (own - card).abs().max().item()
+        flip = torch.round(own) != torch.round(card)
+        near = ((own - own.floor()) - 0.5).abs() <= TOL_VOX
+        if err > TOL_VOX or bool((flip & ~near).any()):
+            raise AssertionError(f"voxel coords differ by {err:.2e}, or round apart away "
+                                 "from a half-integer")
+        if bool(flip.any()):
+            flips["voxel"] += int(flip.sum())
+            log(f"  voxel rounding: {int(flip.sum())} coordinates round apart at a half-integer")
+        return card
+
+    with contextlib.ExitStack() as stack:
+        for mod, name, fn in ((pv2, "furthest_point_sample", exact("FPS", fps)),
+                              (pv2, "ball_query", exact("ball query", bq)),
+                              (pv, "normalize_coords_for_voxelization", vox_coords),
+                              (nb, "three_nn", three_nn)):
+            stack.enter_context(mock.patch.object(mod, name, fn))
+        yield
+
+
+def pvcnn2_reference_phase(run: Run, enc, dev) -> None:
+    """The same weights on PVCNN2_CHECK_B of the main path's clouds, card
+    vs CPU: the selections first, then the output (``TOL_PVCNN2``)."""
+    pc_n, _ = _normalized(dev, PVCNN2_B, SEED + 31)
+    pc = pc_n[:PVCNN2_CHECK_B]
+    enc_cpu = copy.deepcopy(enc).cpu()
+    record, flips = [], {"3-NN": 0, "voxel": 0}
+    log(f"[pvcnn2 reference] PVCNN2Encoder B={PVCNN2_CHECK_B} x N={N_POINTS}: card vs CPU")
+    with selections(record, None, flips), torch.no_grad():
+        got = enc(pc).cpu()
+    kinds = [k for k, _ in record]
+    with selections([], list(record), flips), torch.no_grad():
+        want = enc_cpu(pc.cpu())
+    log(f"  selections compared: {', '.join(f'{kinds.count(k)} {k}' for k in dict.fromkeys(kinds))}"
+        f"; FPS and ball-query indices equal; flips at near-ties: 3-NN {flips['3-NN']}, "
+        f"voxel rounding {flips['voxel']}")
+    err = (got - want).abs().max().item()
+    top = want.abs().max().item()
+    ok = bool(torch.isfinite(got).all()) and err <= TOL_PVCNN2 * top
+    log(f"  output: max_abs_err {err:.3e} (rel {err / max(top, 1e-30):.3e} of max|ref| {top:.3f}) "
+        f"tol {TOL_PVCNN2 * top:.3e} -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        run.failures.append("PVCNN2Encoder: card and CPU disagree")
+
+    # the control: the card again with TF32 convolutions (cuDNN), the
+    # nearest lower precision; the selections depend on the coordinates
+    # alone, so they must be the float32 run's, and the limit must fail it
+    ctrl_record = []
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with selections(ctrl_record, None, flips), torch.no_grad():
+            ctrl = enc(pc).cpu()
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    picks = [(k, v[1] if k == "3-NN" else v) for k, v in record]
+    ctrl_picks = [(k, v[1] if k == "3-NN" else v) for k, v in ctrl_record]
+    if len(picks) != len(ctrl_picks) or not all(
+            k == kc and torch.equal(v, vc) for (k, v), (kc, vc) in zip(picks, ctrl_picks)):
+        run.failures.append("PVCNN2Encoder TF32 control: its selections differ from the "
+                            "float32 run's")
+    err_ctrl = (ctrl - want).abs().max().item()
+    caught = err_ctrl > TOL_PVCNN2 * top
+    log(f"  control, TF32 convolutions: max_abs_err {err_ctrl:.3e} (rel "
+        f"{err_ctrl / max(top, 1e-30):.3e}), selections equal to the float32 run's -> "
+        f"{'above the limit' if caught else 'WITHIN the limit: FAIL'}")
+    if not caught:
+        run.failures.append("PVCNN2Encoder: TOL_PVCNN2 does not fail TF32 convolutions")
+
+
+
 def launches_of(run: Run, name: str, config: str) -> dict:
     """Launches of kernel ``name`` by the calls of ``config``, per main path."""
     return {p: run.launches.get((p, name, config), 0) for p in run.paths}
@@ -1214,14 +1527,16 @@ def launches_of(run: Run, name: str, config: str) -> dict:
 def kernels_line(run: Run) -> dict:
     entries = []
     for (name, config), r in run.records.items():
-        bf, fp = r.get("bf16", {}), r.get("fp32", {})
+        # a kernel held in bf16 reports bf16 first, fp32 beside it; an
+        # fp32-only kernel (fps_kernel) reports fp32
+        bf, fp = (r["bf16"], r.get("fp32", {})) if "bf16" in r else (r["fp32"], {})
         by_path = launches_of(run, name, config)
         entries.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(by_path.values()), "max_abs_err": bf.get("err"),
             "ms": bf.get("ms"), "plain_ms": bf.get("plain_ms"), "bound_ms": bf.get("bound_ms"),
             "bound_by": bf.get("bound_by"), "library_ms": None,
-            "dtype": "bfloat16", "config": config, "what": r["what"], "L": r["L"],
+            "dtype": "bfloat16" if "bf16" in r else "float32", "config": config, "what": r["what"], "L": r["L"],
             "BG": r["BG"], "steps": r["steps"], "launches_by_path": by_path,
             "err_checked_at": bf.get("err_checked_at", [
                 dict(BG=r["BG"], steps=r["steps"], max_abs_err=bf.get("err"))]),
@@ -1231,6 +1546,7 @@ def kernels_line(run: Run) -> dict:
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
                for k in ("chain_ms", "timed_at") if k in t},
             **({"err_checked_at_fp32": fp["err_checked_at"]} if name == "full_kernel" else {}),
+            **({"launches_per_call": bf["launches_per_call"]} if "launches_per_call" in bf else {}),
             **{k: v for k, v in bf.items() if k.startswith("bf16_vs_fp32_plain")},
             **({"chain_vs_whole": bf["chain_vs_whole"],
                 "chain_vs_whole_fp32": fp.get("chain_vs_whole")} if "chain_vs_whole" in bf
@@ -1272,6 +1588,7 @@ def main() -> int:
               ddim_models[2].schedule, dev, BG)
     run.phase("step kernels ppc", step_kernel_phase, "ppc", ppc_edm[1], ppc_edm[2],
               ppc_sched, dev, PPC_BG)
+    run.phase("fps kernel", fps_kernel_phase, dev)
     run.phase("full kernel", full_kernel_phase,
               [("fpc", "fpc", fpc_edm[1]), ("fpc", "fpc class-conditioned", cls_fpc[1]),
                ("ppc", "ppc", ppc_edm[1])], dev)
@@ -1298,12 +1615,18 @@ def main() -> int:
     run.phase("server class-conditioned", server_phase, cls_fpc, dev, STEPS, "ddim",
               "ddim_sampler_kernel")
     log(f"[main path guided] launches: {counts()}")
+
+    encoder = build_pvcnn2(dev)
+    run.reset_counts("pvcnn2")
+    run.phase("pvcnn2 encoder", pvcnn2_phase, encoder, dev)
+    log(f"[main path pvcnn2] launches: {counts()}")
     for name, config in run.records:
         n = launches_of(run, name, config)
         log(f"  {name} at {config}: {n}")
         if sum(n.values()) < 1:
             run.failures.append(f"{name} at {config} was not launched on any main path")
 
+    run.phase("pvcnn2 reference", pvcnn2_reference_phase, encoder, dev)
     run.phase("reference", reference_phase, dev)
 
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s; {card}")

@@ -7,6 +7,10 @@ parallel, one ``nvcc`` each, all started together. The libraries land in
 ``graspldm_tpu_torch/build/`` (git-ignored), each named by a hash of its
 source, the shared headers and the flags, so an edited source is rebuilt
 and an unchanged one is reused. Nothing here runs at import time.
+
+The wrappers' shared pieces live here too: :class:`KernelCounter` (each
+wrapper adds one per launch), :func:`on_cuda` (which side of the wrapper a
+tensor takes) and :func:`check_launch`.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import tempfile
 import types
 from pathlib import Path
 
-__all__ = ["load_library", "nvcc_path", "BUILD_DIR"]
+__all__ = ["load_library", "nvcc_path", "BUILD_DIR", "KernelCounter", "on_cuda",
+           "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
@@ -61,6 +66,11 @@ _SOURCES = {
         # dtype, x, emb, w, net, out, BG, L, E, Ce, G, cmax, stream
         "gl_full_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
+    "fps.cu": {
+        # coords, out, B, N, M, stream
+        "gl_fps": [_P, _P, _I, _I, _I, _P],
+        "gl_fps_max_points": [],
+    },
     "step_samplers.cu": {
         # dtype, x, embin, trow, coef, noise, w, net, out, BG, L, E, Ce, G, cmax, clip,
         # clip_range, stream
@@ -76,6 +86,32 @@ _SOURCES = {
                           _I, _I, _P],
     },
 }
+
+
+class KernelCounter:
+    """Launch count of one kernel: its wrapper adds one per launch."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.launches = 0
+
+    def __repr__(self) -> str:
+        return f"KernelCounter({self.name!r}, launches={self.launches})"
+
+
+def on_cuda(x) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain version); any other device is refused."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    return True
+
+
+def check_launch(rc: int, kernel: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
 
 
 def nvcc_path() -> str:

@@ -10,10 +10,10 @@ the decoder rates as successful. The samplers apply it as a score shift
 in the pipeline (``ldm_generate(cfg_scale=...)``).
 
 The gradient is autograd through the port's plain ``GraspCVAE.decode``
-(an ``nn.Module`` in float32), as the JAX package differentiates its flax
-decoder: the decoder kernels define no backward. The JAX package's flax
-decoder computes in the declared decoder dtype, so with a bf16 decoder
-its gradient carries bf16 rounding that this float32 one does not.
+(an ``nn.Module``), as the JAX package differentiates its flax decoder:
+the decoder kernels define no backward. Like the flax decoder, the plain
+one computes its core in the declared ``decoder_dtype``, so a bf16
+flagship's gradient carries the same bf16 rounding as JAX's.
 """
 
 from __future__ import annotations

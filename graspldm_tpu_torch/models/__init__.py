@@ -2,6 +2,7 @@ from .conditioning import ClassConditionedGraspLatentDDM, RegionConditionedGrasp
 from .grasp_ldm import GraspLatentDDM
 from .grasp_vae import GraspCVAE
 from .pvcnn import PVCNNEncoder
+from .pvcnn2 import PVCNN2, PointNet2, PointNet2MSG, PointNet2SSG, PVCNN2Encoder
 from .resnet1d import ResNet1D, TimeConditionedResNet1D
 
 __all__ = [
@@ -9,6 +10,11 @@ __all__ = [
     "GraspCVAE",
     "GraspLatentDDM",
     "PVCNNEncoder",
+    "PVCNN2",
+    "PVCNN2Encoder",
+    "PointNet2",
+    "PointNet2MSG",
+    "PointNet2SSG",
     "RegionConditionedGraspLatentDDM",
     "ResNet1D",
     "TimeConditionedResNet1D",

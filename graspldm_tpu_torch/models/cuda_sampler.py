@@ -54,17 +54,15 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..cuda_build import KernelCounter, check_launch, on_cuda
 from ..diffusion.elucidated import ElucidatedDiffusion
 from ..diffusion.schedules import DiffusionSchedule
 from .stacked_cuda import (
     DTYPE_CODE,
-    KernelCounter,
     PackedNet,
     _check,
     _final_core,
-    _on_cuda,
     _ptr,
-    _raise_on,
     _rnd,
     _stage_core,
     init_conv,
@@ -204,7 +202,7 @@ def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
     [S, Ce*E]`` the per-step time rows, ``coefs [S, 8]`` from
     :func:`_step_coeffs`, ``noise [S, BG, L]`` for DDPM (None for DDIM).
     """
-    if not _on_cuda(x_T):
+    if not on_cuda(x_T):
         return sampler_plain(w, x_T, embin, trows, coefs, noise, clip, clip_range)
     from ..cuda_build import load_library
 
@@ -221,7 +219,7 @@ def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
         d.cond_channels, d.groups, w.cmax, int(bool(clip)), float(clip_range),
         _stream(x_T),
     )
-    _raise_on(rc, "ddim_sampler_kernel")
+    check_launch(rc, "ddim_sampler_kernel")
     SAMPLER_KERNEL.launches += 1
     return out
 
@@ -236,7 +234,7 @@ def ddim_step_apply(w: PackedNet, x, embin, trow, coef, noise_s=None, clip=True,
     for DDIM). ``check=False`` skips the operand checks: a trajectory
     checks its tables once, not at every step.
     """
-    if not _on_cuda(x):
+    if not on_cuda(x):
         res = ddim_step_plain(w, x, embin, trow, coef, noise_s, clip, clip_range)
         return res if out is None else out.copy_(res)
     from ..cuda_build import load_library
@@ -251,7 +249,7 @@ def ddim_step_apply(w: PackedNet, x, embin, trow, coef, noise_s=None, clip=True,
         _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim, d.cond_channels, d.groups,
         w.cmax, int(bool(clip)), float(clip_range), _stream(x),
     )
-    _raise_on(rc, "ddim_step_kernel")
+    check_launch(rc, "ddim_step_kernel")
     DDIM_STEP_KERNEL.launches += 1
     return out
 
@@ -316,7 +314,7 @@ def fused_sample(
     if not return_trajectory:
         return sampler_apply(w, x_T, embin, trows, coefs, noise, *clip)[:, None, :]
     n = coefs.shape[0]
-    if _on_cuda(x_T):
+    if on_cuda(x_T):
         _check_tables(w, x_T, embin, n, trows=trows, coefs=coefs)
         if noise is not None:
             _check("noise", noise, (n,) + tuple(x_T.shape), torch.float32, w.device)
@@ -392,7 +390,7 @@ def dpmpp_sampler_plain(w: PackedNet, x_T, embin, trows, coefs, clamp: bool) -> 
 def dpmpp_sampler_apply(w: PackedNet, x_T, embin, trows, coefs, clamp=False) -> torch.Tensor:
     """All N DPM-Solver++(2M) steps for ``x_T [BG, L]`` (fp32, at sigma_max
     scale) -> ``x_0 [BG, L]`` (fp32); operands from :func:`dpmpp_tables`."""
-    if not _on_cuda(x_T):
+    if not on_cuda(x_T):
         return dpmpp_sampler_plain(w, x_T, embin, trows, coefs, clamp)
     from ..cuda_build import load_library
 
@@ -406,7 +404,7 @@ def dpmpp_sampler_apply(w: PackedNet, x_T, embin, trows, coefs, clamp=False) -> 
         _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L, d.emb_dim, d.cond_channels,
         d.groups, w.cmax, int(bool(clamp)), _stream(x_T),
     )
-    _raise_on(rc, "dpmpp_sampler_kernel")
+    check_launch(rc, "dpmpp_sampler_kernel")
     DPMPP_KERNEL.launches += 1
     return out
 
@@ -417,7 +415,7 @@ def dpmpp_step_apply(w: PackedNet, x, old, embin, trow, coef, clamp=False, out=N
     denoised estimate ``old [BG, L]`` -> ``(x_new, denoised)``, written into
     ``out`` / ``den_out`` when given. ``trow`` / ``coef`` are row s of
     :func:`dpmpp_tables`' tables; ``check`` as in :func:`ddim_step_apply`."""
-    if not _on_cuda(x):
+    if not on_cuda(x):
         x_new, den = dpmpp_step_plain(w, x, old, embin, trow, coef, clamp)
         return (x_new if out is None else out.copy_(x_new),
                 den if den_out is None else den_out.copy_(den))
@@ -433,7 +431,7 @@ def dpmpp_step_apply(w: PackedNet, x, old, embin, trow, coef, clamp=False, out=N
         _ptr(w.flat), _ptr(w.layout), _ptr(out), _ptr(den_out), BG, L, d.emb_dim,
         d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x),
     )
-    _raise_on(rc, "dpmpp_step_kernel")
+    check_launch(rc, "dpmpp_step_kernel")
     DPMPP_STEP_KERNEL.launches += 1
     return out, den_out
 
@@ -459,7 +457,7 @@ def fused_sample_dpmpp(
     x_T = x_T.float().contiguous()
     if not return_trajectory:
         return dpmpp_sampler_apply(w, x_T, embin, trows, coefs, clamp)[:, None, :]
-    if _on_cuda(x_T):
+    if on_cuda(x_T):
         _check_tables(w, x_T, embin, N, trows=trows, coefs=coefs)
     traj = _trajectory(x_T, N)
     # the denoised estimates, in turns: step s reads dens[s % 2] (zeros at
@@ -545,7 +543,7 @@ def churn_sampler_apply(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, 
     """All N churn steps (two network evaluations each) for ``x_T [BG, L]``
     (fp32, at sigma_max scale) with per-step unit normals ``noise [N, BG,
     L]`` -> ``x_0 [BG, L]`` (fp32); operands from :func:`churn_tables`."""
-    if not _on_cuda(x_T):
+    if not on_cuda(x_T):
         return churn_sampler_plain(w, x_T, embin, trowsA, trowsB, coefA, coefB, noise, clamp)
     from ..cuda_build import load_library
 
@@ -560,7 +558,7 @@ def churn_sampler_apply(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, 
         _ptr(coefB), _ptr(noise), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L,
         d.emb_dim, d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x_T),
     )
-    _raise_on(rc, "churn_sampler_kernel")
+    check_launch(rc, "churn_sampler_kernel")
     CHURN_KERNEL.launches += 1
     return out
 
@@ -572,7 +570,7 @@ def churn_step_apply(w: PackedNet, x, embin, trowA, trowB, coefA, coefB, noise_s
     ``out`` when given. ``trowA`` / ``trowB`` / ``coefA`` / ``coefB`` are
     row s of :func:`churn_tables`' tables; ``check`` as in
     :func:`ddim_step_apply`."""
-    if not _on_cuda(x):
+    if not on_cuda(x):
         res = churn_step_plain(w, x, embin, trowA, trowB, coefA, coefB, noise_s, clamp)
         return res if out is None else out.copy_(res)
     from ..cuda_build import load_library
@@ -588,7 +586,7 @@ def churn_step_apply(w: PackedNet, x, embin, trowA, trowB, coefA, coefB, noise_s
         _ptr(coefA), _ptr(coefB), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim,
         d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x),
     )
-    _raise_on(rc, "churn_step_kernel")
+    check_launch(rc, "churn_step_kernel")
     CHURN_STEP_KERNEL.launches += 1
     return out
 
@@ -621,7 +619,7 @@ def fused_sample_churn(
     if not return_trajectory:
         return churn_sampler_apply(w, x_T, embin, trowsA, trowsB, coefA, coefB, noise,
                                    clamp)[:, None, :]
-    if _on_cuda(x_T):
+    if on_cuda(x_T):
         _check_tables(w, x_T, embin, N, trowsA=trowsA, trowsB=trowsB, coefA=coefA,
                       coefB=coefB)
         _check("noise", noise, (N,) + tuple(x_T.shape), torch.float32, w.device)

@@ -35,13 +35,14 @@ class _ConditionalCore(nn.Module):
     """Linear in-layer -> 1-channel sequence of length R -> ResNet1D."""
 
     def __init__(self, in_features, feature_resolution, block_channels, cond_dims,
-                 groups, dropout, out_features: Optional[int]):
+                 groups, dropout, out_features: Optional[int],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         self.in_layer = nn.Linear(in_features, feature_resolution)
         self.net = ResNet1D(
             dim=feature_resolution, block_channels=block_channels, channels=1,
             input_conditioning_dims=cond_dims, resnet_block_groups=groups,
-            dropout=dropout,
+            dropout=dropout, dtype=dtype,
         )
         self.out_layer = (
             nn.Linear(feature_resolution, out_features) if out_features else None
@@ -60,8 +61,8 @@ class _Encoder(nn.Module):
 
 
 class _Decoder(_ConditionalCore):
-    def __init__(self, num_output_qualities: Optional[int], **kw):
-        super().__init__(out_features=None, **kw)
+    def __init__(self, num_output_qualities: Optional[int], dtype: Optional[torch.dtype], **kw):
+        super().__init__(out_features=None, dtype=dtype, **kw)
         R = kw["feature_resolution"]
         self.tmrp = nn.Linear(R, 6)
         self.class_logits = nn.Linear(R, 1)
@@ -73,8 +74,10 @@ class _Decoder(_ConditionalCore):
 class GraspCVAE(nn.Module):
     """Point-cloud-conditioned grasp VAE; arguments mirror the JAX module.
 
-    ``decoder_dtype`` is the declared compute dtype of the decoder kernels
-    on the generation path (``None`` = float32).
+    ``decoder_dtype`` is the declared compute dtype of the decoder
+    (``None`` = float32): of its kernels on the generation path and of the
+    plain ``decode``, whose core rounds where the JAX package's flax decoder
+    in that dtype does (its in-layer and heads stay float32, as there).
     """
 
     def __init__(self, grasp_latent_size: int = 4, pc_latent_size: int = 64,
@@ -111,7 +114,8 @@ class GraspCVAE(nn.Module):
                              **core),
         )
         self.bottleneck = VAEBottleneck(grasp_latent_size, grasp_latent_size)
-        self.decoder = _Decoder(num_output_qualities, in_features=grasp_latent_size, **core)
+        self.decoder = _Decoder(num_output_qualities, decoder_dtype,
+                                in_features=grasp_latent_size, **core)
 
     def encode_pc(self, xyz: torch.Tensor) -> torch.Tensor:
         """``[B, N, 3]`` -> ``z_pc [B, C_pc, D_pc]``."""
@@ -124,8 +128,9 @@ class GraspCVAE(nn.Module):
 
     def decode(self, z_h: torch.Tensor, z_pc: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         """``z_h [BG, L]``, ``z_pc [BG, C_pc, D_pc]`` ->
-        (tmrp ``[BG, 6]``, cls_logits ``[BG, 1]``[, qualities])."""
-        h = self.decoder.core(z_h, z_pc)
+        (tmrp ``[BG, 6]``, cls_logits ``[BG, 1]``[, qualities]), float32;
+        the core computes in ``decoder_dtype``."""
+        h = self.decoder.core(z_h, z_pc).float()
         out = (self.decoder.tmrp(h), self.decoder.class_logits(h))
         if self.decoder.qualities is not None:
             out = out + (self.decoder.qualities(h),)

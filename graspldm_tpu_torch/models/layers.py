@@ -4,6 +4,15 @@ Counterpart of :mod:`graspldm_tpu.models.layers`. Module and parameter
 names follow the reference PyTorch key space that
 :mod:`graspldm_tpu.utils.torch_convert` reads, so a port ``state_dict``
 converts straight into JAX variables and back (:mod:`..utils.convert`).
+
+The blocks take an optional compute ``dtype`` in ``forward`` (``None``:
+float32, the modules as they are). Given one, they round where the flax
+modules declared with ``dtype=...`` round: every Dense / Conv casts input,
+weight and bias to it (:func:`cast_apply`), ``WSConv1d`` standardises in
+float32 first, GroupNorm takes float32 statistics and rounds its output
+(:func:`cast_group_norm`), the attention's products accumulate in
+float32, and ``ChannelLayerNorm`` (no dtype in flax) computes in its
+input's dtype and promotes to float32 through its gain.
 """
 
 from __future__ import annotations
@@ -25,7 +34,9 @@ __all__ = [
     "LinearAttention1D",
     "PreNorm",
     "Residual",
+    "cast_apply",
     "film_scale_shift",
+    "cast_group_norm",
     "standardize_conv_weight",
 ]
 
@@ -73,14 +84,52 @@ def standardize_conv_weight(weight: torch.Tensor, eps: float = 1e-5) -> torch.Te
     return (w - mean) * torch.rsqrt(var + eps)
 
 
+def cast_apply(layer: nn.Module, x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``layer(x)`` for a Linear, Conv1d or Identity. Given ``dtype``, as
+    flax's ``nn.Dense`` / ``nn.Conv(dtype=...)``: input, weight and bias cast
+    to ``dtype``, the product rounded to it, then the bias added in it."""
+    if dtype is None or isinstance(layer, nn.Identity):
+        return layer(x)
+    w = layer.weight.to(dtype)
+    if isinstance(layer, nn.Linear):
+        y, b = F.linear(x.to(dtype), w), layer.bias
+    else:
+        y, b = layer._conv_forward(x.to(dtype), w, None), layer.bias
+        b = None if b is None else b[:, None]
+    return y if b is None else y + b.to(dtype)
+
+
+def cast_group_norm(norm: nn.GroupNorm, x: torch.Tensor,
+                    dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``norm(x)`` on ``x [B, C, L]``. Given ``dtype``, as flax's
+    ``nn.GroupNorm(dtype=...)``: float32 statistics (``E[x^2] - E[x]^2``,
+    clipped at 0), the affine in float32, the result rounded to ``dtype``."""
+    if dtype is None:
+        return norm(x)
+    B, C = x.shape[:2]
+    xf = x.float()
+    grp = xf.reshape(B, norm.num_groups, -1)
+    mean = grp.mean(-1, keepdim=True)
+    var = ((grp * grp).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    rep = C // norm.num_groups
+    mean, var = mean.repeat_interleave(rep, 1), var.repeat_interleave(rep, 1)
+    mul = torch.rsqrt(var + norm.eps) * norm.weight[:, None]
+    return ((xf - mean) * mul + norm.bias[:, None]).to(dtype)
+
+
 class WSConv1d(nn.Conv1d):
     """Weight-standardized 1-D convolution (eps 1e-5 for fp32 weights,
-    1e-3 otherwise, as in the JAX package)."""
+    1e-3 otherwise, as in the JAX package). The weight is standardised in
+    float32 before any cast to the compute ``dtype``."""
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
         eps = 1e-5 if self.weight.dtype == torch.float32 else 1e-3
-        w = standardize_conv_weight(self.weight, eps).to(x.dtype)
-        return F.conv1d(x, w, self.bias, self.stride, self.padding)
+        w = standardize_conv_weight(self.weight, eps)
+        if dtype is None:
+            return F.conv1d(x, w.to(x.dtype), self.bias, self.stride, self.padding)
+        y = F.conv1d(x.to(dtype), w.to(dtype), None, self.stride, self.padding)
+        return y + self.bias.to(dtype)[:, None]
 
 
 class ChannelLayerNorm(nn.Module):
@@ -106,8 +155,8 @@ class PreNorm(nn.Module):
         self.fn = fn
         self.norm = ChannelLayerNorm(dim)
 
-    def forward(self, x):
-        return self.fn(self.norm(x))
+    def forward(self, x, **kw):
+        return self.fn(self.norm(x), **kw)
 
 
 class Residual(nn.Module):
@@ -115,8 +164,8 @@ class Residual(nn.Module):
         super().__init__()
         self.fn = fn
 
-    def forward(self, x):
-        return self.fn(x) + x
+    def forward(self, x, **kw):
+        return self.fn(x, **kw) + x
 
 
 def film_scale_shift(x, scale, shift):
@@ -138,8 +187,9 @@ class Block1D(nn.Module):
         self.proj = WSConv1d(dim, dim_out, 3, padding=1)
         self.norm = nn.GroupNorm(groups, dim_out, eps=1e-5)
 
-    def forward(self, x, scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
-        x = self.norm(self.proj(x))
+    def forward(self, x, scale_shift: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                dtype: Optional[torch.dtype] = None):
+        x = cast_group_norm(self.norm, self.proj(x, dtype), dtype)
         if scale_shift is not None:
             x = film_scale_shift(x, *scale_shift)
         return F.silu(x)
@@ -160,13 +210,14 @@ class ResnetBlock1D(nn.Module):
         self.block2 = Block1D(dim_out, dim_out, groups)
         self.res_conv = nn.Conv1d(dim, dim_out, 1) if dim != dim_out else nn.Identity()
 
-    def forward(self, x, emb: Optional[torch.Tensor] = None):
+    def forward(self, x, emb: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None):
         scale_shift = None
         if self.mlp is not None and emb is not None:
-            scale_shift = self.mlp(emb).chunk(2, dim=-1)
-        h = self.block1(x, scale_shift)
-        h = self.block2(h)
-        return h + self.res_conv(x)
+            scale_shift = cast_apply(self.mlp[1], F.silu(emb), dtype).chunk(2, dim=-1)
+        h = self.block1(x, scale_shift, dtype)
+        h = self.block2(h, None, dtype)
+        return h + cast_apply(self.res_conv, x, dtype)
 
 
 class LinearAttention1D(nn.Module):
@@ -180,14 +231,15 @@ class LinearAttention1D(nn.Module):
         self.to_qkv = nn.Conv1d(dim, hidden * 3, 1, bias=False)
         self.to_out = nn.Sequential(nn.Conv1d(hidden, dim, 1), ChannelLayerNorm(dim))
 
-    def forward(self, x):
+    def forward(self, x, dtype: Optional[torch.dtype] = None):
         B, _, L = x.shape
         q, k, v = (
             t.reshape(B, self.heads, self.dim_head, L)
-            for t in self.to_qkv(x).chunk(3, dim=1)
+            for t in cast_apply(self.to_qkv, x, dtype).chunk(3, dim=1)
         )
         q = q.softmax(dim=-2) * (self.dim_head ** -0.5)
         k = k.softmax(dim=-1)
+        q, k, v = q.float(), k.float(), v.float()  # the products accumulate in float32
         context = torch.einsum("bhdn,bhen->bhde", k, v)
-        out = torch.einsum("bhde,bhdn->bhen", context, q)
-        return self.to_out(out.reshape(B, -1, L))
+        out = torch.einsum("bhde,bhdn->bhen", context, q).reshape(B, -1, L)
+        return self.to_out[1](cast_apply(self.to_out[0], out, dtype))

@@ -37,13 +37,14 @@ class SharedMLP(nn.Module):
 
 
 class SE(nn.Module):
-    """Squeeze-and-excitation over ``[B, C, r, r, r]`` (reduction 8, Swish)."""
+    """Squeeze-and-excitation over ``[B, C, r, r, r]`` (reduction 8; Swish
+    gate, or ReLU with ``use_relu`` as PVCNN2 sets)."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, use_relu: bool = False):
         super().__init__()
         self.fc = nn.Sequential(
             nn.Linear(channels, channels // 8, bias=False),
-            nn.SiLU(),
+            nn.ReLU() if use_relu else nn.SiLU(),
             nn.Linear(channels // 8, channels, bias=False),
             nn.Sigmoid(),
         )
@@ -56,12 +57,14 @@ class SE(nn.Module):
 class PVConv(nn.Module):
     """Voxel Conv3d branch + per-point MLP branch, summed.
 
-    Voxel coords are not radius-normalized (the JAX module's default); the
+    Voxel coords are radius-normalized only with ``normalize`` (the JAX
+    module's default is not to; PVCNN2 sets it, with ``with_se_relu``); the
     Dropout(0.1) keeps the reference's layer numbering (``voxel_layers.3``)."""
 
-    def __init__(self, in_channels: int, out_channels: int, resolution: int):
+    def __init__(self, in_channels: int, out_channels: int, resolution: int,
+                 normalize: bool = False, with_se_relu: bool = False):
         super().__init__()
-        self.resolution = resolution
+        self.resolution, self.normalize = resolution, normalize
         self.voxel_layers = nn.Sequential(
             nn.Conv3d(in_channels, out_channels, 3, padding=1),
             nn.GroupNorm(8, out_channels, eps=1e-5),
@@ -70,7 +73,7 @@ class PVConv(nn.Module):
             nn.Conv3d(out_channels, out_channels, 3, padding=1),
             nn.GroupNorm(8, out_channels, eps=1e-5),
             nn.SiLU(),
-            SE(out_channels),
+            SE(out_channels, use_relu=with_se_relu),
         )
         self.point_features = SharedMLP(in_channels, [out_channels])
 
@@ -78,7 +81,8 @@ class PVConv(nn.Module):
         """``features [B, C, N]``, ``coords [B, 3, N]`` -> ``[B, C_out, N]``."""
         r = self.resolution
         B = features.shape[0]
-        vox = normalize_coords_for_voxelization(coords.transpose(1, 2), r, normalize=False)
+        vox = normalize_coords_for_voxelization(coords.transpose(1, 2), r,
+                                                normalize=self.normalize)
         grid = avg_voxelize(features.transpose(1, 2), vox, r)  # [B, V, C]
         grid = grid.transpose(1, 2).reshape(B, -1, r, r, r)
         grid = self.voxel_layers(grid)

@@ -8,7 +8,9 @@ the key space :func:`graspldm_tpu.utils.torch_convert.
 resnet1d_params_from_torch` reads.
 
 The conditioning path carries two SiLUs: ``silu(Dense(z))`` here, then the
-ResnetBlock's own ``mlp(silu(emb))``.
+ResnetBlock's own ``mlp(silu(emb))``. ``ResNet1D(dtype=...)`` computes its
+core in that dtype, rounding where the flax module of the same ``dtype``
+does (:mod:`.layers`); ``None`` is float32.
 """
 
 from __future__ import annotations
@@ -16,10 +18,12 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .layers import (
     LinearAttention1D,
+    cast_apply,
     PreNorm,
     RandomOrLearnedSinusoidalPosEmb,
     ResnetBlock1D,
@@ -52,12 +56,12 @@ class _ResNet1DBase(nn.Module):
         self.final_res_block = ResnetBlock1D(in_ch, in_ch, emb_dim, groups)
         self.final_conv = nn.Conv1d(in_ch, out_channels, 1)
 
-    def _core(self, x, latent_emb):
-        x = self.init_conv(x)
+    def _core(self, x, latent_emb, dtype=None):
+        x = cast_apply(self.init_conv, x, dtype)
         for res1, res2, attn, proj in self.blocks:
-            x = res2(res1(x, latent_emb), latent_emb)
-            x = self.drop(proj(attn(x)))
-        return self.final_conv(self.final_res_block(x, latent_emb))
+            x = res2(res1(x, latent_emb, dtype), latent_emb, dtype)
+            x = self.drop(cast_apply(proj, attn(x, dtype=dtype), dtype))
+        return cast_apply(self.final_conv, self.final_res_block(x, latent_emb, dtype), dtype)
 
 
 class ResNet1D(_ResNet1DBase):
@@ -70,9 +74,11 @@ class ResNet1D(_ResNet1DBase):
     def __init__(self, dim: int, block_channels: Sequence[int] = (16, 64, 128, 64, 16),
                  channels: int = 1, out_channels: Optional[int] = None,
                  input_conditioning_dims: Optional[int] = None,
-                 resnet_block_groups: int = 8, dropout: Optional[float] = None):
+                 resnet_block_groups: int = 8, dropout: Optional[float] = None,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         emb_dim = dim * 4
+        self.dtype = dtype
         self.input_emb_layers = (
             nn.Sequential(nn.Linear(input_conditioning_dims, emb_dim), nn.SiLU())
             if input_conditioning_dims is not None else None
@@ -88,8 +94,8 @@ class ResNet1D(_ResNet1DBase):
         if self.input_emb_layers is not None:
             if z_cond is None:
                 raise ValueError("model is input-conditioned; z_cond required")
-            latent_emb = self.input_emb_layers(z_cond)
-        return self._core(x, latent_emb)
+            latent_emb = F.silu(cast_apply(self.input_emb_layers[0], z_cond, self.dtype))
+        return self._core(x, latent_emb, self.dtype)
 
 
 class TimeConditionedResNet1D(_ResNet1DBase):

@@ -35,6 +35,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..cuda_build import KernelCounter, check_launch, on_cuda
 from .stacked_denoiser import DenoiserDims, compute_emb_s_stacked
 
 __all__ = [
@@ -62,17 +63,6 @@ AUX_KEYS = ("fourier_w", "time_w1", "time_b1", "time_w2", "time_b2", "input_w", 
             "cls_w", "cls_b", "region_w1", "region_b1", "region_w2", "region_b2")
 DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LN_EPS = 1e-5  # the kernel path's LayerNorm eps in every dtype (as stacked_pallas)
-
-
-class KernelCounter:
-    """Launch count of one kernel: its wrapper adds one per launch."""
-
-    def __init__(self, name: str):
-        self.name = name
-        self.launches = 0
-
-    def __repr__(self) -> str:
-        return f"KernelCounter({self.name!r}, launches={self.launches})"
 
 
 STAGE_KERNEL = KernelCounter("stage_kernel")
@@ -273,22 +263,9 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def _raise_on(rc: int, kernel: str) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{kernel} launch failed: cudaError {rc}")
-
-
-def _on_cuda(x: torch.Tensor) -> bool:
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
-    return True
-
-
 def stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """Network stage ``i`` on ``x [BG, L*C_i]`` with FiLM input ``emb [BG, Ce*E]``."""
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return stage_plain(w, i, x, emb)
     from ..cuda_build import load_library
 
@@ -303,14 +280,14 @@ def stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor) -> tor
         ctypes.c_void_p(w.record_ptr(i)), _ptr(out), BG, L, C, Cout, d.emb_dim,
         d.cond_channels, d.groups, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
-    _raise_on(rc, "stage_kernel")
+    check_launch(rc, "stage_kernel")
     STAGE_KERNEL.launches += 1
     return out
 
 
 def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """Final ResnetBlock + head on ``x [BG, L*C]`` -> ``[BG, L]``."""
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return final_plain(w, x, emb)
     from ..cuda_build import load_library
 
@@ -326,7 +303,7 @@ def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tenso
         d.emb_dim, d.cond_channels, d.groups,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
-    _raise_on(rc, "final_kernel")
+    check_launch(rc, "final_kernel")
     FINAL_KERNEL.launches += 1
     return out
 
@@ -334,7 +311,7 @@ def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tenso
 def full_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """The whole core after the init conv, one launch: ``x [BG, L*dim0]``
     with FiLM input ``emb [BG, Ce*E]`` -> ``[BG, L]``."""
-    if not _on_cuda(x):
+    if not on_cuda(x):
         return full_plain(w, x, emb)
     from ..cuda_build import load_library
 
@@ -348,7 +325,7 @@ def full_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor
         L, d.emb_dim, d.cond_channels, d.groups, w.cmax,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
-    _raise_on(rc, "full_kernel")
+    check_launch(rc, "full_kernel")
     FULL_KERNEL.launches += 1
     return out
 

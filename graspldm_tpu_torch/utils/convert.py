@@ -3,8 +3,10 @@
 Takes the variable trees of :mod:`graspldm_tpu` models as nested dicts of
 numpy arrays (``params``, ``batch_stats``, ``constants``), exactly as
 ``jax.tree.map(np.asarray, variables)`` gives them, and returns the port's
-``state_dict`` for :class:`..models.GraspCVAE` / :class:`..models.GraspLatentDDM`
-and the class- / region-conditioned denoisers.
+``state_dict`` for :class:`..models.GraspCVAE` / :class:`..models.GraspLatentDDM`,
+the class- / region-conditioned denoisers, and the PVCNN2 family
+(:class:`..models.PVCNN2`, :class:`..models.PVCNN2Encoder`,
+:class:`..models.PointNet2`), whose key space is the port's own.
 It is the inverse of :mod:`graspldm_tpu.utils.torch_convert`, so a round
 trip through that converter checks both directions.
 
@@ -24,6 +26,9 @@ __all__ = [
     "class_conditioned_ldm_state_dict",
     "region_conditioned_ldm_state_dict",
     "grasp_cvae_state_dict",
+    "pvcnn2_state_dict",
+    "pvcnn2_encoder_state_dict",
+    "pointnet2_state_dict",
 ]
 
 StateDict = Dict[str, torch.Tensor]
@@ -114,6 +119,18 @@ def _conv3d(sd: StateDict, key: str, p: Mapping) -> None:
     sd[f"{key}.bias"] = _t(p["bias"])
 
 
+def _pvconv(sd: StateDict, pfx: str, p: Mapping, s: Mapping) -> None:
+    # voxel_layers: 0 Conv3d, 1 GN, 2 SiLU, 3 Dropout, 4 Conv3d, 5 GN,
+    # 6 SiLU, 7 SE (fc.0, fc.2)
+    _conv3d(sd, f"{pfx}voxel_layers.0", p["voxel_conv1"])
+    _norm(sd, f"{pfx}voxel_layers.1", p["voxel_norm1"])
+    _conv3d(sd, f"{pfx}voxel_layers.4", p["voxel_conv2"])
+    _norm(sd, f"{pfx}voxel_layers.5", p["voxel_norm2"])
+    _linear(sd, f"{pfx}voxel_layers.7.fc.0", p["se"]["fc1"])
+    _linear(sd, f"{pfx}voxel_layers.7.fc.2", p["se"]["fc2"])
+    _shared_mlp(sd, f"{pfx}point_features.", p["point_features"], s["point_features"])
+
+
 def _pvcnn_encoder(sd: StateDict, pfx: str, params: Mapping, stats: Mapping) -> None:
     pv, pv_stats = params["pvcnn"], stats["pvcnn"]
     i = 0
@@ -121,16 +138,7 @@ def _pvcnn_encoder(sd: StateDict, pfx: str, params: Mapping, stats: Mapping) -> 
         p, s = pv[f"stage_{i}"], pv_stats[f"stage_{i}"]
         stage = f"{pfx}pvcnn_modules.point_features.{i}."
         if "voxel_conv1" in p:
-            # voxel_layers: 0 Conv3d, 1 GN, 2 SiLU, 3 Dropout, 4 Conv3d,
-            # 5 GN, 6 SiLU, 7 SE (fc.0, fc.2)
-            _conv3d(sd, f"{stage}voxel_layers.0", p["voxel_conv1"])
-            _norm(sd, f"{stage}voxel_layers.1", p["voxel_norm1"])
-            _conv3d(sd, f"{stage}voxel_layers.4", p["voxel_conv2"])
-            _norm(sd, f"{stage}voxel_layers.5", p["voxel_norm2"])
-            _linear(sd, f"{stage}voxel_layers.7.fc.0", p["se"]["fc1"])
-            _linear(sd, f"{stage}voxel_layers.7.fc.2", p["se"]["fc2"])
-            _shared_mlp(sd, f"{stage}point_features.", p["point_features"],
-                        s["point_features"])
+            _pvconv(sd, stage, p, s)
         else:
             _shared_mlp(sd, stage, p, s)
         i += 1
@@ -182,4 +190,71 @@ def grasp_cvae_state_dict(variables: Mapping) -> StateDict:
     _linear(sd, "decoder.class_logits", p["head_class"])
     if "head_qualities" in p:
         _linear(sd, "decoder.qualities", p["head_qualities"])
+    return sd
+
+
+def _count(p: Mapping, fmt: str) -> int:
+    n = 0
+    while fmt.format(n) in p:
+        n += 1
+    return n
+
+
+def _pvcnn2(sd: StateDict, pfx: str, p: Mapping, s: Mapping) -> None:
+    """flax PVCNN2 (``sa{i}_conv{b}``, ``sa{i}_module``, ``fp{i}_module``,
+    ``fp{i}_conv{b}``) -> ``sa_layers.{i}.{b}`` / ``fp_layers.{i}.{b}``."""
+    for i in range(_count(p, "sa{}_module")):
+        n = _count(p, f"sa{i}_conv{{}}")
+        for b in range(n):
+            _pvconv(sd, f"{pfx}sa_layers.{i}.{b}.", p[f"sa{i}_conv{b}"], s[f"sa{i}_conv{b}"])
+        _shared_mlp(sd, f"{pfx}sa_layers.{i}.{n}.mlps.0.", p[f"sa{i}_module"]["mlp"],
+                    s[f"sa{i}_module"]["mlp"])
+    for i in range(_count(p, "fp{}_module")):
+        _shared_mlp(sd, f"{pfx}fp_layers.{i}.0.mlp.", p[f"fp{i}_module"]["mlp"],
+                    s[f"fp{i}_module"]["mlp"])
+        for b in range(_count(p, f"fp{i}_conv{{}}")):
+            _pvconv(sd, f"{pfx}fp_layers.{i}.{b + 1}.", p[f"fp{i}_conv{b}"],
+                    s[f"fp{i}_conv{b}"])
+
+
+def pvcnn2_state_dict(variables: Mapping) -> StateDict:
+    """PVCNN2 variables (``params``, ``batch_stats``) -> :class:`..models.PVCNN2`
+    state dict."""
+    sd: StateDict = {}
+    _pvcnn2(sd, "", variables["params"], variables["batch_stats"])
+    return sd
+
+
+def pvcnn2_encoder_state_dict(variables: Mapping) -> StateDict:
+    """PVCNN2Encoder variables -> :class:`..models.PVCNN2Encoder` state dict."""
+    p, stats = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    _pvcnn2(sd, "pvcnn_modules.", p["pvcnn2"], stats["pvcnn2"])
+    _conv1x1(sd, "conv_downscale", p["conv_downscale"])
+    _conv1x1(sd, "out_layer.0", p["out_conv"])
+    _linear(sd, "out_layer.1", p["out_proj"])
+    return sd
+
+
+def pointnet2_state_dict(variables: Mapping) -> StateDict:
+    """PointNet2 (SSG / MSG) variables -> :class:`..models.PointNet2` state
+    dict: ``sa{i}_module`` / ``sa{i}_msg`` / ``sa{i}_global`` ->
+    ``sa_layers.{i}.mlps.{j}``, ``fp{i}_module`` -> ``fp_layers.{i}.mlp``."""
+    p, s = variables["params"], variables["batch_stats"]
+    sd: StateDict = {}
+    i = 0
+    while True:
+        if f"sa{i}_module" in p:
+            _shared_mlp(sd, f"sa_layers.{i}.mlps.0.", p[f"sa{i}_module"]["mlp"],
+                        s[f"sa{i}_module"]["mlp"])
+        elif f"sa{i}_msg" in p or f"sa{i}_global" in p:
+            name = f"sa{i}_msg" if f"sa{i}_msg" in p else f"sa{i}_global"
+            for j in range(_count(p[name], "mlp_{}")):
+                _shared_mlp(sd, f"sa_layers.{i}.mlps.{j}.", p[name][f"mlp_{j}"],
+                            s[name][f"mlp_{j}"])
+        else:
+            break
+        i += 1
+    for i in range(_count(p, "fp{}_module")):
+        _shared_mlp(sd, f"fp_layers.{i}.mlp.", p[f"fp{i}_module"]["mlp"], s[f"fp{i}_module"]["mlp"])
     return sd

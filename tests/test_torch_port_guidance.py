@@ -5,9 +5,11 @@ against the JAX package on the CPU. ``ldm_generate`` as a whole is held in
 
 * ``make_success_guidance``: the gradient of ``sum log sigmoid(cls_logit)``
   through the port's ``GraspCVAE.decode`` against JAX's through the flax
-  decoder, float32; and how far JAX's own gradient moves when its flax
-  decoder computes in bf16 (the port's plain decoder is float32 only:
-  ROADMAP §3);
+  decoder, in float32 and with the decoder computing in bf16 (against
+  JAX's bf16 gradient, which lies about a fifth of its largest entry away
+  from its float32 one);
+* ``GraspCVAE.decode`` in float32 (``decoder_dtype=None``), bitwise
+  against the same decode written with the stock torch modules;
 * ``GaussianDiffusion1D.sample`` (DDIM, DDPM), ``sample_dpmpp`` and
   ``sample_churn`` with a ``guidance_fn`` over the flagship denoiser (flax
   in JAX, the converted ``nn.Module`` here), with trajectories, fed JAX's
@@ -23,7 +25,8 @@ Sizes as ``tests/test_torch_port_pipeline.py``: 64-point clouds,
 the sampler tests run the flagship denoiser's widths at BG = 8.
 
 Tolerances (float32): the gradient 1e-4 relative, 1e-6 absolute (one
-decoder forward and backward, reordered sums); the samplers 5e-4 absolute
+decoder forward and backward, reordered sums); bf16: 4e-2 of the
+gradient's largest entry, a fifth of bf16's own move of it; the samplers 5e-4 absolute
 and relative, the JAX package's sampler precedent
 (``tests/test_fused_denoiser.py:322``).
 """
@@ -60,6 +63,7 @@ from graspldm_tpu_torch.serving import DynamicBatcher, GraspServer, make_batch_g
 from graspldm_tpu_torch.utils.convert import grasp_cvae_state_dict, grasp_ldm_state_dict
 
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
+BF16_GRAD_TOL = 4e-2
 TOL = dict(atol=5e-4, rtol=5e-4)
 CFG = dict(pc_num_points=64, pc_scale_channels=0.125, pc_scale_voxel_resolution=0.25,
            block_channels=(16, 32), dropout=None)
@@ -92,8 +96,10 @@ def vaes():
         jax.random.PRNGKey(0), pc, rng.normal(size=(4, 7)).astype(np.float32)))
     vae = build_flagship(FlagshipConfig(**CFG), device="cpu")[0]
     vae.load_state_dict(grasp_cvae_state_dict(vv), strict=True)
+    vae16 = build_flagship(FlagshipConfig(**CFG, denoiser_dtype="bfloat16"), device="cpu")[0]
+    vae16.load_state_dict(grasp_cvae_state_dict(vv), strict=True)
     z_pc = np.asarray(jax.jit(lambda p: jvae.apply(vv, p, method="encode_pc"))(pc))
-    return dict(jvae=jvae, jvae16=jvae16, vv=vv, vae=vae, pc=pc,
+    return dict(jvae=jvae, jvae16=jvae16, vv=vv, vae=vae, vae16=vae16, pc=pc,
                 z_rep=np.repeat(z_pc, G, axis=0))
 
 
@@ -101,8 +107,11 @@ def test_success_guidance_gradient_matches_jax(vaes):
     """float32: the port's gradient against JAX's, inside ``torch.no_grad``
     as the samplers call it. bf16: JAX's flax decoder computing in bf16
     moves its own gradient by about a fifth of its largest entry here
-    (2.0e-1; the gap ROADMAP §3 lists: the port's plain decoder computes in
-    float32 only)."""
+    (2.1e-1 against its float32 one); the port's decoder with
+    ``decoder_dtype=bfloat16`` rounds at the same points, so its gradient
+    lies within ``BF16_GRAD_TOL`` of JAX's bf16 gradient (1.7e-2 read on
+    the CPU; the two differ only where a sum in another order rounds to
+    the other bf16 neighbour, forward or backward)."""
     rng = np.random.default_rng(1)
     x0 = rng.normal(size=(BG, 1, 4)).astype(np.float32)
     want = np.asarray(jax.jit(j_make_success_guidance(vaes["jvae"], vaes["vv"],
@@ -122,6 +131,61 @@ def test_success_guidance_gradient_matches_jax(vaes):
     gap = np.abs(bf16 - want).max() / np.abs(want).max()
     print(f"bf16 flax decoder vs float32: max |grad diff| / max |grad| = {gap:.3e}")
     assert 1e-2 < gap < 0.5
+    # the port's bf16 decoder rounds where flax's does: its gradient is
+    # JAX's bf16 one, not the float32 one
+    with torch.no_grad():
+        got16 = make_success_guidance(vaes["vae16"], _t(vaes["z_rep"]))(_t(x0))
+    assert got16.dtype == torch.float32
+    gap16 = np.abs(_np(got16) - bf16).max() / np.abs(bf16).max()
+    print(f"port bf16 decoder vs flax bf16 decoder: max |grad diff| / max |grad| = {gap16:.3e}")
+    assert gap16 <= BF16_GRAD_TOL
+
+
+def _stock_decode(vae, z_h, z_pc):
+    """The float32 decode written with the stock torch modules and ops, as
+    the port computed it before the decoder took a compute dtype."""
+    import torch.nn.functional as F
+
+    from graspldm_tpu_torch.models.layers import film_scale_shift, standardize_conv_weight
+
+    def block(b, x, scale_shift=None):
+        w = standardize_conv_weight(b.proj.weight, 1e-5)
+        x = b.norm(F.conv1d(x, w, b.proj.bias, b.proj.stride, b.proj.padding))
+        return F.silu(x if scale_shift is None else film_scale_shift(x, *scale_shift))
+
+    def res_block(r, x, emb):
+        h = block(r.block2, block(r.block1, x, r.mlp(emb).chunk(2, dim=-1)))
+        return h + r.res_conv(x)
+
+    def attention(res, x):  # Residual(PreNorm(LinearAttention1D))
+        a, (Bx, _, L) = res.fn.fn, x.shape
+        q, k, v = (t.reshape(Bx, a.heads, a.dim_head, L)
+                   for t in a.to_qkv(res.fn.norm(x)).chunk(3, dim=1))
+        q, k = q.softmax(dim=-2) * (a.dim_head ** -0.5), k.softmax(dim=-1)
+        out = torch.einsum("bhde,bhdn->bhen", torch.einsum("bhdn,bhen->bhde", k, v), q)
+        return a.to_out(out.reshape(Bx, -1, L)) + x
+
+    d = vae.decoder
+    net = d.net
+    emb = net.input_emb_layers(z_pc)
+    x = net.init_conv(d.in_layer(z_h)[:, None, :])
+    for res1, res2, attn, proj in net.blocks:
+        x = proj(attention(attn, res_block(res2, res_block(res1, x, emb), emb)))
+    h = net.final_conv(res_block(net.final_res_block, x, emb))[:, 0, :]
+    return d.tmrp(h), d.class_logits(h)
+
+
+def test_float32_decode_is_the_stock_modules(vaes):
+    """``decoder_dtype=None``: ``GraspCVAE.decode`` is bitwise the stock
+    modules' float32 decode (the compute-dtype path leaves it as it was)."""
+    rng = np.random.default_rng(2)
+    z_h = _t(rng.normal(size=(BG, 4)).astype(np.float32))
+    with torch.no_grad():
+        got = vaes["vae"].decode(z_h, _t(vaes["z_rep"]))
+        want = _stock_decode(vaes["vae"], z_h, _t(vaes["z_rep"]))
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
 
 
 # ---------------------------------------------------------------------------

@@ -29,6 +29,7 @@ from graspldm_tpu_torch.models.stacked_denoiser import (
     compute_input_emb,
     pack_math_weights,
 )
+from graspldm_tpu_torch.ops import cuda_fps
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -37,7 +38,7 @@ def _counts():
     return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL,
                                       cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL, cs.CHURN_KERNEL,
                                       cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
-                                      cs.CHURN_STEP_KERNEL))
+                                      cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL))
 
 
 @pytest.fixture(scope="module")
@@ -68,7 +69,8 @@ def test_port_never_imports_jax():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'graspldm_tpu'))\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 22, mods\n"
-        "for need in ('models.conditioning', 'diffusion.guidance'):\n"
+        "for need in ('models.conditioning', 'diffusion.guidance', 'models.pvcnn2',\n"
+        "             'ops.cuda_fps', 'ops.neighborhood', 'ops.sampling'):\n"
         "    assert p.__name__ + '.' + need in mods, need\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -543,3 +545,38 @@ def test_kernel_wrappers_check_their_operands(cuda, nets):
         sc.stage_apply(w, 1, x, emb)
     with pytest.raises(ValueError, match="contiguous"):
         sc.stage_apply(w, 0, torch.zeros(x.shape[::-1], device=cuda).t(), emb)
+
+
+def _fps_clouds(case: str, device) -> tuple:
+    g = torch.Generator().manual_seed(11)
+    if case == "duplicates":  # every point 4 times: exact ties in every step
+        base = torch.randn(16, 256, 3, generator=g)
+        c = base.repeat(1, 4, 1)[:, torch.randperm(1024, generator=g)]
+        return c.to(device), 256
+    if case == "one_point":  # one point 64 times: all distances zero
+        return torch.randn(4, 1, 3, generator=g).repeat(1, 64, 1).to(device), 64
+    B, N, M = {"m_eq_n": (16, 1024, 1024), "sa1": (16, 1024, 256), "sa2": (16, 256, 64),
+               "sa3": (16, 64, 16), "ragged": (5, 1000, 250), "large_n": (2, 8192, 64)}[case]
+    return torch.randn(B, N, 3, generator=g).to(device), M
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["m_eq_n", "sa1", "sa2", "sa3", "ragged", "duplicates",
+                                  "one_point", "large_n"])
+def test_fps_kernel_matches_plain_version_on_card(cuda, case):
+    """``fps_kernel`` picks exactly the plain version's indices: ties (to
+    the lowest index), M = N, ragged N and the largest N a block holds."""
+    coords, M = _fps_clouds(case, cuda)
+    before = cuda_fps.FPS_KERNEL.launches
+    got = cuda_fps.fps_apply(coords, M)
+    torch.cuda.synchronize()
+    assert cuda_fps.FPS_KERNEL.launches == before + 1
+    assert got.dtype == torch.long and got.shape == (coords.shape[0], M)
+    assert torch.equal(got, cuda_fps.fps_plain(coords, M))
+    assert torch.equal(got.cpu(), cuda_fps.fps_plain(coords.cpu(), M))
+
+
+@pytest.mark.cuda
+def test_fps_kernel_refuses_a_cloud_larger_than_a_block(cuda):
+    with pytest.raises(ValueError, match="8192"):
+        cuda_fps.fps_apply(torch.zeros(1, 8193, 3, device=cuda), 4)
