@@ -71,13 +71,32 @@ any phase fails (every phase runs; the failures are listed at the end):
    clouds on the card against the CPU, selections first (see
    ``TOL_PVCNN2``), and once more with TF32 convolutions, a control the
    limit must fail;
-9. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn, a DDIM
+9. the route with attention between launches
+   (``stacked_cuda.XLA_ATTENTION``, patched on as a user would set it):
+   before the main paths, ``hybrid_stage_kernel`` and
+   ``hybrid_final_kernel`` against their plain versions at the decoder's
+   BG = 4096 (float32 and bf16; ragged 1021 in bf16) and the ppc
+   denoiser's BG = 1024 / 2048 / 1021 (region-conditioned in float32,
+   unconditioned in bf16), timed, with each
+   attention between launches timed, and the hybrid chain against the
+   unsplit chain on the decoder's operands (bf16 limit: twice bf16's own
+   spread), both timed; then the main path: the fpc flagship with DDIM
+   100 (its decode is the hybrid chain) and the region-conditioned EDM
+   ppc flagship with DPM++ 32 and CFG 2 (each evaluation one hybrid chain
+   over 2048 rows), each twice, its wall time split into hybrid launches,
+   attention between launches and the rest;
+10. hold small float32 ``ldm_generate`` calls (DDIM, DPM++, churn, a DDIM
    trajectory; class CFG DDIM, success-guided DDPM, success-guided churn,
-   region CFG DPM++, and CFG with success guidance) on the card against
-   the same calls on the CPU, where every kernel wrapper runs its plain
-   version.
+   region CFG DPM++, and CFG with success guidance; the hybrid region CFG
+   DPM++) on the card against the same calls on the CPU, where every
+   kernel wrapper runs its plain version; check that ``"auto"`` takes the
+   kernels for every flagship above, and hold the plain-module route
+   (``denoiser_impl="module"``, and a learned-sinusoidal denoiser) card
+   against CPU with no denoiser kernel launched; and
+   ``PVCNNEncoder(use_global_attention=True)`` at the fpc width, B = 4 x
+   1024, card against CPU within ``TOL_PVCNN2``.
 
-The kernel launch counts are zeroed just before each main path (4 to 8)
+The kernel launch counts are zeroed just before each main path (4 to 9)
 and read just after it; every call inside checks its exact counts, and
 each launch is booked to the configuration (fpc or ppc) of its call. The
 script prints its wall time, then the kernels' JSON record, then as its
@@ -114,6 +133,11 @@ STEP_CHAIN = 3  # chained steps each per-step kernel is held over against its pl
 RAGGED_BG = 1021  # ragged at every block size of the step kernels (16, 9, 4, 2 rows)
 FULL_BG = {"fpc": (BG, 2 * BG), "ppc": (PPC_BG, 2 * PPC_BG)}  # guided rows: plain and CFG
 CFG_SCALE, GUIDANCE_SCALE, REGION_POINTS = 2.0, 1.0, 128
+# the hybrid kernels' main-path rows: the fpc decode, the ppc CFG evaluation
+HYBRID_BG = {"fpc": BG, "ppc": 2 * PPC_BG}
+HYBRID_WHAT = {"fpc": "decoder, attention between launches (4 stage launches)",
+               "ppc": "ppc denoiser, attention between launches (main path: the "
+                      "region-conditioned one in float32 with CFG; bf16: unconditioned)"}
 
 # float32: the kernel and the plain version do the same float32 math and
 # differ only in summation order (~1e-6 relative measured); 1e-4 relative
@@ -209,6 +233,8 @@ REPLACES = {
     "stage_kernel": "graspldm_tpu/models/stacked_pallas.py:900",
     "final_kernel": "graspldm_tpu/models/stacked_pallas.py:914",
     "full_kernel": "graspldm_tpu/models/stacked_pallas.py:826",
+    "hybrid_stage_kernel": "graspldm_tpu/models/stacked_pallas.py:1004",
+    "hybrid_final_kernel": "graspldm_tpu/models/stacked_pallas.py:1019",
     "ddim_sampler_kernel": f"{_PS}:482",
     "dpmpp_sampler_kernel": f"{_PS}:513",
     "churn_sampler_kernel": f"{_PS}:535",
@@ -226,6 +252,8 @@ SOURCES = {
     "stage_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "final_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "full_kernel": "graspldm_tpu_torch/csrc/full_net.cu",
+    "hybrid_stage_kernel": "graspldm_tpu_torch/csrc/hybrid.cu",
+    "hybrid_final_kernel": "graspldm_tpu_torch/csrc/hybrid.cu",
     "ddim_sampler_kernel": "graspldm_tpu_torch/csrc/kernels.cu",
     "dpmpp_sampler_kernel": "graspldm_tpu_torch/csrc/dpmpp_sampler.cu",
     "churn_sampler_kernel": "graspldm_tpu_torch/csrc/churn_sampler.cu",
@@ -267,7 +295,8 @@ def counters():
     from graspldm_tpu_torch.models import stacked_cuda as sc
     from graspldm_tpu_torch.ops import cuda_fps
 
-    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL, cs.SAMPLER_KERNEL,
+    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL, sc.HYBRID_STAGE_KERNEL,
+            sc.HYBRID_FINAL_KERNEL, cs.SAMPLER_KERNEL,
             cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
             cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL)
 
@@ -287,6 +316,7 @@ class Run:
         self.expected: dict = {}
         self.paths: list = []
         self.launches: dict = {}  # (main path, kernel, config) -> launches
+        self.per_call: dict = {}  # (kernel, config) -> {checked call: launches per call}
 
     def compare(self, name: str, got: torch.Tensor, ref: torch.Tensor, tol_rel: float,
                 tol_mean: float | None = None, absolute: bool = False) -> float:
@@ -321,12 +351,15 @@ class Run:
         self.expected = counts()
         self.seen = counts()
 
-    def expect_more(self, phase: str, config: str, **more) -> None:
+    def expect_more(self, phase: str, config: str, calls: int = 1, **more) -> None:
         """Exact counts: the ones so far plus ``more`` (every other count
-        unchanged); the launches since the last check are booked to
-        ``config``."""
+        unchanged) for ``calls`` calls of ``phase``; the launches since the
+        last check are booked to ``config``, and ``more / calls`` is kept
+        as each kernel's launches per call of ``phase``."""
         for k, v in more.items():
             self.expected[k] += v
+            if v:
+                self.per_call.setdefault((k, config), {})[phase] = v // calls
         c = counts()
         log(f"  launches so far: {c}")
         for k, n in c.items():
@@ -865,6 +898,173 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
 
 
 # ---------------------------------------------------------------------------
+# the hybrid kernels (attention between launches, XLA_ATTENTION at L > 4)
+# ---------------------------------------------------------------------------
+
+
+def hybrid_macs(d, i: int) -> int:
+    """Multiply-adds of hybrid launch ``i`` for one row (``i`` = n_stages:
+    the hybrid final block): the previous stage's k3 projection, then the
+    ResnetBlocks (and the head); the attention runs between launches."""
+    n = len(d.block_channels)
+    proj = d.seq_len * 3 * d.cins[i - 1] * d.block_channels[i - 1] if i > 0 else 0
+    if i == n:
+        return proj + final_macs(d)
+    L, E, C = d.seq_len, d.emb_dim, d.cins[i]
+    return proj + 2 * (E * 2 * C + 2 * L * 3 * C * C)
+
+
+def hybrid_weights(w, i: int) -> list:
+    """The packed weights hybrid launch ``i`` reads."""
+    pfx = "final" if i == len(w.dims.block_channels) else f"b{i}r"
+    ws = [t for k, t in w.w.items() if k.startswith(pfx)]
+    return ws + ([w.w[f"b{i - 1}_wp"], w.w[f"b{i - 1}_bp"]] if i > 0 else [])
+
+
+def hybrid_launch(w, i: int, x, emb, plain: bool = False):
+    """Hybrid launch ``i`` (or its plain version) on ``x``."""
+    from graspldm_tpu_torch.models import stacked_cuda as sc
+
+    if i == len(w.dims.block_channels):
+        return (sc.hybrid_final_plain if plain else sc.hybrid_final_apply)(w, x, emb)
+    return (sc.hybrid_stage_plain if plain else sc.hybrid_stage_apply)(w, i, x, emb)
+
+
+def hybrid_chain(w, x, emb, plain: bool = False):
+    """The network after the init conv with attention between launches:
+    each hybrid stage, then its attention in plain PyTorch, then the hybrid
+    final block."""
+    from graspldm_tpu_torch.models.stacked_denoiser import attention_stacked
+
+    n = len(w.dims.block_channels)
+    for i in range(n):
+        x = attention_stacked(w.w, i, hybrid_launch(w, i, x, emb, plain), w.dims)
+    return hybrid_launch(w, n, x, emb, plain)
+
+
+def hold_hybrid(run: Run, config: str, label: str, w, x, emb, timed: bool) -> None:
+    """Each hybrid launch of one chain against its plain version on the
+    same operands (each launch's input from the plain chain); given
+    ``timed``, each launch, its plain version and each attention between
+    launches timed with CUDA events, summed per kernel over the chain."""
+    from graspldm_tpu_torch.models.stacked_denoiser import attention_stacked
+
+    d, tag = w.dims, tag_of(w.dtype)
+    n, bg = len(d.block_channels), x.shape[0]
+    tol = TOL_FP32 if tag == "fp32" else TOL_BF16
+    errs = {"hybrid_stage_kernel": [], "hybrid_final_kernel": []}
+    inputs, h = [], x
+    for i in range(n + 1):
+        name = "hybrid_final_kernel" if i == n else "hybrid_stage_kernel"
+        ref = hybrid_launch(w, i, h, emb, plain=True)
+        got = hybrid_launch(w, i, h, emb)
+        torch.cuda.synchronize()
+        errs[name].append(run.compare(f"{name} {label} {tag} launch {i}", got, ref, tol))
+        inputs.append(h)
+        if i < n:
+            h = attention_stacked(w.w, i, ref, d)
+    for name, e in errs.items():
+        r = run.record(name, config, d.seq_len, HYBRID_BG[config], None, tag,
+                       what=HYBRID_WHAT[config])
+        r.setdefault("err_checked_at", []).append(dict(BG=bg, what=label, max_abs_err=max(e)))
+        r["err"] = max(r.get("err", 0.0), max(e))
+    if not timed:
+        return
+    acc = {k: dict(ms=0.0, plain_ms=0.0, flops=0.0, bytes=0) for k in errs}
+    attn = []
+    for i, xi in enumerate(inputs):
+        a = acc["hybrid_final_kernel" if i == n else "hybrid_stage_kernel"]
+        a["ms"] += cuda_ms(lambda: hybrid_launch(w, i, xi, emb), 10)
+        a["plain_ms"] += cuda_ms(lambda: hybrid_launch(w, i, xi, emb, plain=True), 3)
+        a["flops"] += 2.0 * hybrid_macs(d, i) * bg
+        out_cols = d.seq_len * (d.cins[i] if i < n else 1)
+        a["bytes"] += nbytes(xi, emb, *hybrid_weights(w, i)) + bg * out_cols * xi.element_size()
+        if i < n:
+            hi = hybrid_launch(w, i, xi, emb)
+            attn.append(cuda_ms(lambda: attention_stacked(w.w, i, hi, d), 10))
+    for name, a in acc.items():
+        b = bound(a["flops"], a["bytes"], tag)
+        log(f"  {name} {label} {tag}, {n if name == 'hybrid_stage_kernel' else 1} launch(es): "
+            f"kernel {a['ms']:.3f} ms, plain {a['plain_ms']:.3f} ms, bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']})")
+        r = run.record(name, config, d.seq_len, HYBRID_BG[config], None, tag)
+        timed_at = dict(BG=bg, ms=a["ms"], plain_ms=a["plain_ms"], **b)
+        r.setdefault("timed_at", []).append(timed_at)
+        if bg == HYBRID_BG[config]:
+            r.update(ms=a["ms"], plain_ms=a["plain_ms"], **b)
+    log(f"  attention between launches {label} {tag}: "
+        + ", ".join(f"stage {i} {t:.3f} ms" for i, t in enumerate(attn))
+        + f"; per chain {sum(attn):.3f} ms")
+    r = run.record("hybrid_stage_kernel", config, d.seq_len, HYBRID_BG[config], None, tag)
+    r.setdefault("attention_ms", []).append(dict(BG=bg, per_stage=attn, per_chain=sum(attn)))
+
+
+def hybrid_kernel_phase(run: Run, vae, region_ddm, ppc_ddm, dev) -> None:
+    """Both hybrid kernels against their plain versions: at the decoder's
+    shapes (fpc VAE, L = 16, BG = 4096) in float32 and bf16, with a ragged
+    BG = 1021 in bf16, and at the ppc denoiser's at BG = 1024, 2048 (CFG)
+    and 1021: the region-conditioned one in float32 (as conditioned packs
+    are) and the unconditioned one in bf16; timed at 4096 / 1024 / 2048. Then the hybrid chain against the unsplit
+    chain (4 ``stage_kernel`` + ``final_kernel``) on the decoder's operands:
+    the attention's lowering differs (one-pass LayerNorm statistics, bf16
+    softmaxes), so the two agree to float32's sums in float32 and, in bf16,
+    to no better than bf16 itself moves the network (its spread: plain bf16
+    vs plain float32 on the same operands); both chains timed."""
+    from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
+    from graspldm_tpu_torch.models.fast_decoder import decoder_dims_for
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet, full_plain, init_conv
+    from graspldm_tpu_torch.models.stacked_denoiser import (
+        compute_emb_s_stacked, pack_math_weights,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+    ddims = decoder_dims_for(vae)
+    dec_math = pack_math_weights(vae.decoder.net, ddims)
+    z_pc = torch.randn((BG, 3, 64), generator=gen, device=dev)
+    z_h = torch.randn((BG, 4), generator=gen, device=dev)
+    with torch.no_grad():
+        x_in = vae.decoder.in_layer(z_h)
+    w32 = PackedNet(dec_math, ddims, torch.float32, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        tag = tag_of(dt)
+        log(f"[kernels] hybrid fpc decoder {tag}, L=16, BG={BG}")
+        w = PackedNet(dec_math, ddims, dt, dev)
+        emb = compute_emb_s_stacked(w.aux, None, z_pc).to(dt).contiguous()
+        x = init_conv(w, x_in).reshape(BG, -1).to(dt).contiguous()
+        hold_hybrid(run, "fpc", "decoder", w, x, emb, timed=True)
+        if dt == torch.bfloat16:
+            hold_hybrid(run, "fpc", f"decoder ragged BG={RAGGED_BG}", w, x[:RAGGED_BG],
+                        emb[:RAGGED_BG], timed=False)
+        hyb, unsplit = hybrid_chain(w, x, emb), stage_chain(w, x, emb)
+        torch.cuda.synchronize()
+        if dt == torch.float32:
+            err = run.compare("hybrid chain vs unsplit chain decoder fp32", hyb, unsplit,
+                              TOL_FP32)
+        else:
+            sp = spread(run, "decoder chain", full_plain(w, x, emb).float(),
+                        full_plain(w32, x.float(), emb.float()).float())
+            err = run.compare("hybrid chain vs unsplit chain decoder bf16 (limit: twice bf16's "
+                              "spread)", hyb, unsplit, 2.0 * sp["max_rel"])
+        hyb_ms = cuda_ms(lambda: hybrid_chain(w, x, emb), 10)
+        uns_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
+        log(f"  decode core {tag}, BG={BG}: hybrid chain (5 launches + 4 attentions) "
+            f"{hyb_ms:.3f} ms vs unsplit chain (5 launches) {uns_ms:.3f} ms")
+        r = run.record("hybrid_stage_kernel", "fpc", 16, BG, None, tag)
+        r.update(chain_ms=hyb_ms, unsplit_chain_ms=uns_ms,
+                 chain_vs_unsplit=dict(max_abs_err=err, bitwise_equal=bool(torch.equal(hyb,
+                                                                                        unsplit))))
+
+    for ddm, dt in ((region_ddm, torch.float32), (ppc_ddm, torch.bfloat16)):
+        dims = _denoiser_dims(ddm)
+        w = PackedNet(pack_math_weights(ddm, dims), dims, dt, dev)
+        label = f"ppc {ddm.conditioning or 'unconditioned'} denoiser"
+        for bg in (RAGGED_BG,) + FULL_BG["ppc"]:
+            log(f"[kernels] hybrid {label} {tag_of(dt)}, L=16, BG={bg}")
+            x, emb = full_operands(w, bg, gen, dev)
+            hold_hybrid(run, "ppc", label, w, x, emb, timed=bg != RAGGED_BG)
+
+
+# ---------------------------------------------------------------------------
 # main paths
 # ---------------------------------------------------------------------------
 
@@ -1001,14 +1201,16 @@ def _timed(fn, part: str, times: dict):
 
 
 @contextlib.contextmanager
-def split_times(times: dict, parts: dict | None = None, made: dict | None = None):
-    """Add the host time of the pipeline module's functions in ``parts``
-    (name -> part; default: ``ldm_generate``'s sampler call and its
-    decodes, "sampler" and "decode") and of the functions that the
-    factories in ``made`` (name -> part) return, to ``times``, by wrapping
-    the pipeline module's names for the duration."""
-    from graspldm_tpu_torch.inference import pipeline as pl
+def split_times(times: dict, parts: dict | None = None, made: dict | None = None,
+                module=None):
+    """Add the host time of ``module``'s functions in ``parts`` (name ->
+    part; default: ``ldm_generate``'s sampler call and its decodes,
+    "sampler" and "decode") and of the functions that the factories in
+    ``made`` (name -> part) return, to ``times``, by wrapping the module's
+    names for the duration (default: the pipeline module)."""
+    from graspldm_tpu_torch.inference import pipeline
 
+    pl = module or pipeline
     if parts is None:
         parts = {"fused_sample": "sampler", "fused_sample_dpmpp": "sampler",
                  "fused_sample_churn": "sampler", "decode_and_postprocess": "decode"}
@@ -1189,7 +1391,7 @@ def server_phase(run: Run, models, dev, steps: int, sampler: str, kernel: str) -
         server.shutdown()
     if stats["batches"] < 1:
         raise AssertionError("the server ran no batch")
-    run.expect_more("server", "fpc",
+    run.expect_more("server", "fpc", stats["batches"],
                     **{k: stats["batches"] * v for k, v in per_call(kernel).items()})
 
 
@@ -1249,6 +1451,194 @@ def reference_phase(run: Run, dev) -> None:
             log(f"  {k}: max_abs_err {err:.3e} tol {TOL_E2E:.0e}")
             if not err <= TOL_E2E:
                 raise AssertionError(f"{sampler} {k}: card and CPU disagree")
+
+
+def per_call_hybrid(evals: int, n_stages: int = 4) -> dict:
+    """Hybrid launches of ``evals`` network evaluations (decodes included):
+    one hybrid stage launch per stage and one hybrid final launch each."""
+    return {"hybrid_stage_kernel": n_stages * evals, "hybrid_final_kernel": evals}
+
+
+def hybrid_phase(run: Run, fpc, region_ppc, dev) -> None:
+    """The route with attention between launches, the flag patched as a
+    user would set it: the fpc flagship with DDIM 100 (B clouds x G grasps,
+    bf16; its L = 4 sampler is unchanged, its L = 16 decode is the hybrid
+    chain) and the region-conditioned EDM ppc flagship with DPM++ 32 and
+    CFG (one cloud x G grasps, float32 denoiser: each evaluation one hybrid
+    chain over 2G rows, the decode one more), each twice: exact launch
+    counts per call, every pose checked, and the wall time split into
+    hybrid launches, attention between launches and the rest."""
+    from graspldm_tpu_torch.inference.pipeline import ldm_generate
+    from graspldm_tpu_torch.models import stacked_cuda as sc
+
+    pc_n, meta = _normalized(dev, B, SEED)
+    pc1, meta1 = _normalized(dev, 1, SEED + 7)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    region = region_of(pc1, G, gen)
+    n_dpmpp = EDM_STEPS["dpmpp"]
+    calls = [
+        ("fpc ddim, hybrid decode", "fpc", fpc, pc_n, meta, "ddim", STEPS, {},
+         {"ddim_sampler_kernel": 1, **per_call_hybrid(1)}),
+        ("region EDM ppc dpmpp, cfg", "ppc", region_ppc, pc1, meta1, "dpmpp", n_dpmpp,
+         dict(region_points=region, cfg_scale=CFG_SCALE), per_call_hybrid(n_dpmpp + 1)),
+    ]
+    parts = {"hybrid_stage_apply": "hybrid", "hybrid_final_apply": "hybrid",
+             "attention_stacked": "attention"}
+    with mock.patch.object(sc, "XLA_ATTENTION", True):
+        for label, config, models, pc, m, sampler, steps, kw, expect in calls:
+            b = pc.shape[0]
+            log(f"[hybrid] {label}: B={b} x N={N_POINTS}, G={G}, {sampler} x {steps} steps, "
+                "XLA_ATTENTION on")
+            for i in range(2):
+                times: dict = {}
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with split_times(times, parts, module=sc):
+                    out = ldm_generate(*models, pc, G, gen, num_inference_steps=steps,
+                                       sampler=sampler, meta=m, **kw)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                hyb, att = times.get("hybrid", 0.0), times.get("attention", 0.0)
+                log(f"  call {i + 1}: wall {wall:.3f} s = hybrid launches {hyb:.3f} s + "
+                    f"attention between launches {att:.3f} s + rest {wall - hyb - att:.3f} s"
+                    + (" (first call: set-up included)" if i == 0 else ""))
+                check_grasps(out, b, G)
+                run.expect_more(f"hybrid {label}", config, **expect)
+
+
+def hybrid_reference_phase(run: Run, dev) -> None:
+    """The hybrid route in float32, card against CPU: the region-conditioned
+    EDM ppc flagship, DPM++ 32 with CFG, one cloud x 16 grasps."""
+    from graspldm_tpu_torch.inference.pipeline import ldm_generate
+    from graspldm_tpu_torch.models import stacked_cuda as sc
+    from graspldm_tpu_torch.utils.normalization import normalize_pc_and_grasps
+
+    b, g, steps = 1, 16, EDM_STEPS["dpmpp"]
+    rng = np.random.default_rng(SEED + 42)
+    pc_n, _, meta = normalize_pc_and_grasps(torch.from_numpy(clouds(rng, b, N_POINTS)),
+                                            torch.zeros((b, 1, 6)))
+    meta_d = type(meta)(*(t.to(dev) for t in meta))
+    cpu_gen = torch.Generator().manual_seed(SEED + 43)
+    x_T = 80.0 * torch.randn((b * g, 16), generator=cpu_gen)
+    region = region_of(pc_n, g, cpu_gen)
+    vae, ddm, diffusion = build_models("float32", "cpu", elucidated=True, conditioning="region",
+                                       **PPC)
+    log(f"[hybrid reference] fp32 region ppc ldm_generate B={b}, G={g}, dpmpp x {steps} steps, "
+        "cfg, XLA_ATTENTION on: card vs CPU")
+    kw = dict(num_inference_steps=steps, sampler="dpmpp", cfg_scale=CFG_SCALE)
+    with mock.patch.object(sc, "XLA_ATTENTION", True):
+        want = ldm_generate(vae, ddm, diffusion, pc_n, g, meta=meta, x_T=x_T,
+                            region_points=region, **kw)
+        before = counts()
+        got = ldm_generate(copy.deepcopy(vae).to(dev), copy.deepcopy(ddm).to(dev), diffusion,
+                           pc_n.to(dev), g, meta=meta_d, x_T=x_T.to(dev),
+                           region_points=region.to(dev), **kw)
+    launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+    log(f"  launches: {launched}")
+    if launched != per_call_hybrid(steps + 1):
+        raise AssertionError(f"hybrid reference launches {launched}")
+    for k in ("grasps", "grasp_tmrp", "confidence"):
+        err = (got[k].cpu() - want[k]).abs().max().item()
+        log(f"  {k}: max_abs_err {err:.3e} tol {TOL_E2E:.0e}")
+        if not err <= TOL_E2E:
+            raise AssertionError(f"hybrid {k}: card and CPU disagree")
+
+
+def module_route_phase(run: Run, flagships: dict, dev) -> None:
+    """The plain-module route on the card. First, ``"auto"`` takes the
+    kernels for every model the main paths run (it decides by model, as the
+    JAX package does). Then float32 ``ldm_generate`` card against CPU on
+    routes that launch no denoiser kernel: the fpc flagship with
+    ``denoiser_impl="module"``, and a denoiser with learned sinusoidal time
+    features, which ``"auto"`` sends to the module (DDIM 100, one cloud x
+    16 grasps; the decoder keeps its kernels)."""
+    from graspldm_tpu_torch.flagship import init_params_
+    from graspldm_tpu_torch.inference.pipeline import (
+        ldm_generate, resolve_decoder_impl, resolve_denoiser_impl,
+    )
+    from graspldm_tpu_torch.models import GraspLatentDDM
+    from graspldm_tpu_torch.utils.normalization import normalize_pc_and_grasps
+
+    for label, (vae, ddm, _) in flagships.items():
+        routes = (resolve_denoiser_impl(ddm), resolve_decoder_impl(vae))
+        log(f"[module route] auto on the {label} flagship: denoiser {routes[0]}, "
+            f"decoder {routes[1]}")
+        if routes != ("kernels", "kernels"):
+            raise AssertionError(f"auto left the kernels for the {label} flagship")
+    b, g = 1, 16
+    rng = np.random.default_rng(SEED + 44)
+    pc_n, _, meta = normalize_pc_and_grasps(torch.from_numpy(clouds(rng, b, N_POINTS)),
+                                            torch.zeros((b, 1, 6)))
+    meta_d = type(meta)(*(t.to(dev) for t in meta))
+    x_T = torch.randn((b * g, 4), generator=torch.Generator().manual_seed(SEED + 45))
+    vae, ddm, diffusion = build_models("float32", "cpu")
+    learned = init_params_(GraspLatentDDM(learned_sinusoidal_cond=True,
+                                          random_fourier_features=False, dropout=None),
+                           torch.Generator().manual_seed(SEED + 46)).eval()
+    denoiser_kernels = ("ddim_sampler_kernel", "dpmpp_sampler_kernel", "churn_sampler_kernel",
+                        "ddim_step_kernel", "dpmpp_step_kernel", "churn_step_kernel",
+                        "full_kernel")
+    for label, den, impl in (("fpc, denoiser_impl='module'", ddm, "module"),
+                             ("learned sinusoidal, auto", learned, "auto")):
+        log(f"[module route] fp32 ldm_generate {label}, B={b}, G={g}, ddim x {STEPS}: "
+            "card vs CPU")
+        kw = dict(num_inference_steps=STEPS, sampler="ddim", denoiser_impl=impl)
+        want = ldm_generate(vae, den, diffusion, pc_n, g, meta=meta, x_T=x_T, **kw)
+        before = counts()
+        got = ldm_generate(copy.deepcopy(vae).to(dev), copy.deepcopy(den).to(dev), diffusion,
+                           pc_n.to(dev), g, meta=meta_d, x_T=x_T.to(dev), **kw)
+        launched = {k: v - before[k] for k, v in counts().items() if v != before[k]}
+        log(f"  launches: {launched}")
+        if any(k in launched for k in denoiser_kernels) or launched != per_call_plain_decode():
+            raise AssertionError(f"module route launched {launched}")
+        for k in ("grasps", "grasp_tmrp", "confidence"):
+            err = (got[k].cpu() - want[k]).abs().max().item()
+            log(f"  {k}: max_abs_err {err:.3e} tol {TOL_E2E:.0e}")
+            if not err <= TOL_E2E:
+                raise AssertionError(f"module route {k}: card and CPU disagree")
+
+
+def per_call_plain_decode() -> dict:
+    """The decode alone: 4 stage launches and the final block."""
+    return {"stage_kernel": 4, "final_kernel": 1}
+
+
+def pvcnn_attention_phase(run: Run, dev) -> None:
+    """``PVCNNEncoder(use_global_attention=True)`` at the fpc flagship's
+    width (channels and voxel resolutions scaled 0.75, z_pc [3, 64]) on B x
+    1024 points, float32 (TF32 off), card against CPU within TOL_PVCNN2 of
+    the output's largest magnitude. The clouds are rounded to multiples of
+    2^-10, so that their mean, the voxel coordinates and their rounding are
+    exact and equal on both sides and the comparison holds the arithmetic
+    (the convolutions, BatchNorm and the attention over the 1024 points)."""
+    from torch import nn
+
+    from graspldm_tpu_torch.flagship import init_params_
+    from graspldm_tpu_torch.models.pvcnn import PVCNNEncoder
+
+    gen = torch.Generator().manual_seed(SEED + 47)
+    enc = init_params_(PVCNNEncoder(out_features=64, n_points=N_POINTS, scale_channels=0.75,
+                                    scale_voxel_resolution=0.75, use_global_attention=True,
+                                    out_channels=3), gen).eval()
+    with torch.no_grad():
+        for m in enc.modules():
+            if isinstance(m, nn.BatchNorm1d):
+                m.running_mean.normal_(0.0, 0.1, generator=gen)
+                m.running_var.uniform_(0.5, 1.5, generator=gen)
+    pc_n, _ = _normalized("cpu", B, SEED + 48)
+    pc_q = torch.round(pc_n * 1024.0) / 1024.0
+    log(f"[pvcnn attention] PVCNNEncoder(use_global_attention=True), fpc width, B={B} x "
+        f"N={N_POINTS}, float32: card vs CPU")
+    with torch.no_grad():
+        want = enc(pc_q)
+        enc_d = copy.deepcopy(enc).to(dev)
+        got = enc_d(pc_q.to(dev))
+        torch.cuda.synchronize()
+        ms = cuda_ms(lambda: enc_d(pc_q.to(dev)), 3)
+    log(f"  forward on the card {ms:.3f} ms (CUDA events, mean of 3)")
+    if tuple(got.shape) != (B, 3, 64):
+        raise AssertionError(f"encoder output {tuple(got.shape)}")
+    run.compare("PVCNNEncoder global attention card vs CPU", got.cpu(), want, TOL_PVCNN2)
 
 
 # ---------------------------------------------------------------------------
@@ -1312,8 +1702,7 @@ def fps_kernel_phase(run: Run, dev) -> None:
                     "in timed_at",
                err=max(c["max_abs_err"] for c in checked), ms=sum(t["ms"] for t in main),
                plain_ms=sum(t["plain_ms"] for t in main), bound_ms=b["bound_ms"],
-               bound_by=b["bound_by"], timed_at=timed, err_checked_at=checked,
-               launches_per_call=len(FPS_SHAPES))
+               bound_by=b["bound_by"], timed_at=timed, err_checked_at=checked)
 
 
 def build_pvcnn2(dev):
@@ -1361,7 +1750,7 @@ def pvcnn2_phase(run: Run, enc, dev) -> None:
     log(f"  forward {ms:.3f} ms (CUDA events, mean of 3); peak memory "
         f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; |z| max "
         f"{out.abs().max().item():.3f}")
-    run.expect_more("pvcnn2 encoder timing", "pvcnn2", fps_kernel=4 * len(FPS_SHAPES))
+    run.expect_more("pvcnn2 encoder timing", "pvcnn2", 4, fps_kernel=4 * len(FPS_SHAPES))
     with torch.no_grad():
         device_time_by_kernel(lambda: enc(pc_n), ms)
     run.expect_more("pvcnn2 encoder profile", "pvcnn2", fps_kernel=len(FPS_SHAPES))
@@ -1544,9 +1933,11 @@ def kernels_line(run: Run) -> dict:
             "plain_ms_fp32": fp.get("plain_ms"), "bound_ms_fp32": fp.get("bound_ms"),
             "bound_by_fp32": fp.get("bound_by"),
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
-               for k in ("chain_ms", "timed_at") if k in t},
-            **({"err_checked_at_fp32": fp["err_checked_at"]} if name == "full_kernel" else {}),
-            **({"launches_per_call": bf["launches_per_call"]} if "launches_per_call" in bf else {}),
+               for k in ("chain_ms", "timed_at", "unsplit_chain_ms", "attention_ms",
+                         "chain_vs_unsplit") if k in t},
+            **({"err_checked_at_fp32": fp["err_checked_at"]}
+               if "err_checked_at" in fp and "bf16" in r else {}),
+            "launches_per_call": run.per_call.get((name, config), {}),
             **{k: v for k, v in bf.items() if k.startswith("bf16_vs_fp32_plain")},
             **({"chain_vs_whole": bf["chain_vs_whole"],
                 "chain_vs_whole_fp32": fp.get("chain_vs_whole")} if "chain_vs_whole" in bf
@@ -1592,6 +1983,8 @@ def main() -> int:
     run.phase("full kernel", full_kernel_phase,
               [("fpc", "fpc", fpc_edm[1]), ("fpc", "fpc class-conditioned", cls_fpc[1]),
                ("ppc", "ppc", ppc_edm[1])], dev)
+    run.phase("hybrid kernels", hybrid_kernel_phase, ddim_models[0], region_ppc[1], ppc_edm[1],
+              dev)
 
     run.reset_counts("ddim")
     run.phase("generation ddim", generation_phase, ddim_models, ppc_ddim, dev)
@@ -1616,6 +2009,10 @@ def main() -> int:
               "ddim_sampler_kernel")
     log(f"[main path guided] launches: {counts()}")
 
+    run.reset_counts("hybrid")
+    run.phase("hybrid", hybrid_phase, ddim_models, region_ppc, dev)
+    log(f"[main path hybrid] launches: {counts()}")
+
     encoder = build_pvcnn2(dev)
     run.reset_counts("pvcnn2")
     run.phase("pvcnn2 encoder", pvcnn2_phase, encoder, dev)
@@ -1628,6 +2025,11 @@ def main() -> int:
 
     run.phase("pvcnn2 reference", pvcnn2_reference_phase, encoder, dev)
     run.phase("reference", reference_phase, dev)
+    run.phase("hybrid reference", hybrid_reference_phase, dev)
+    run.phase("module route", module_route_phase,
+              {"fpc": ddim_models, "ppc": ppc_ddim, "EDM fpc": fpc_edm, "EDM ppc": ppc_edm,
+               "class fpc": cls_fpc, "region ppc": region_ppc}, dev)
+    run.phase("pvcnn attention", pvcnn_attention_phase, dev)
 
     log(f"[done] wall {time.perf_counter() - t_start:.1f} s; {card}")
     if run.failures:

@@ -109,6 +109,16 @@ __host__ __device__ inline Plan stage_plan(int L, int C, int Cout, int E, int G)
   p.embin = 0; p.xc = 0;
   return p;
 }
+// hybrid stage / final block (hybrid.cu): input [L][Cin], an optional k3
+// projection to C into OUT (otherwise the resblocks run in X), then
+// resblocks at width C; no attention buffers
+__host__ __device__ inline Plan hybrid_plan(int L, int Cin, int C, int E, int G, bool proj) {
+  Plan p;
+  p.x = up8(L * Cin); p.out = proj ? up8(L * C) : 0; p.h = up8(L * C); p.h2 = up8(L * C);
+  p.qkv = 0; p.s = 0; p.ss = up8(2 * C); p.esum = up8(E); p.st = up8(2 * G);
+  p.embin = 0; p.xc = 0;
+  return p;
+}
 // final resblock + head at width C
 __host__ __device__ inline Plan final_plan(int L, int C, int E, int G) {
   Plan p;

@@ -66,6 +66,11 @@ _SOURCES = {
         # dtype, x, emb, w, net, out, BG, L, E, Ce, G, cmax, stream
         "gl_full_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
+    "hybrid.cu": {
+        # dtype, x, emb, w, net, stage, out, BG, L, Cin, C, E, Ce, G, stream
+        "gl_hybrid_stage_forward": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "gl_hybrid_final_forward": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
     "fps.cu": {
         # coords, out, B, N, M, stream
         "gl_fps": [_P, _P, _I, _I, _I, _P],

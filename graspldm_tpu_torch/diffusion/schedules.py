@@ -1,17 +1,46 @@
-"""Linear-beta noise schedule and DDPM/DDIM reverse steps (torch).
+"""Noise schedules and DDPM/DDIM reverse steps (torch).
 
-Counterpart of :mod:`graspldm_tpu.diffusion.schedules`. ``alphas_cumprod``
-stays in float32, as in the JAX package (x64 off there): DDIM parity drifts
-if it is computed in float64 here.
+Counterpart of :mod:`graspldm_tpu.diffusion.schedules`: the beta schedules
+``linear``, ``scaled_linear`` and ``squaredcos_cap_v2`` (alias ``cosine``),
+rounded as the JAX package rounds them. ``alphas_cumprod`` stays in
+float32, as in the JAX package (x64 off there): DDIM parity drifts if it is
+computed in float64 here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
-__all__ = ["DiffusionSchedule"]
+__all__ = ["DiffusionSchedule", "make_beta_schedule", "BETA_SCHEDULES"]
+
+BETA_SCHEDULES = ("linear", "scaled_linear", "squaredcos_cap_v2", "cosine")
+
+
+def make_beta_schedule(schedule: str, num_steps: int, beta_start: float,
+                       beta_end: float) -> torch.Tensor:
+    """``[num_steps]`` float32 betas, as the JAX package's
+    ``make_beta_schedule``. ``scaled_linear`` squares a float32 linspace of
+    square roots in float32; the cosine schedule is computed in Python
+    floats (float64), capped at 0.999, then cast to float32. (XLA folds
+    ``jnp.linspace`` into other float32 arithmetic than ``torch.linspace``:
+    its entries can differ by 1 ulp, so the linear betas by 1 ulp and the
+    scaled-linear ones by up to 4.)"""
+    if schedule == "linear":
+        return torch.linspace(beta_start, beta_end, num_steps, dtype=torch.float32)
+    if schedule == "scaled_linear":
+        return torch.linspace(beta_start ** 0.5, beta_end ** 0.5, num_steps,
+                              dtype=torch.float32) ** 2
+    if schedule in ("squaredcos_cap_v2", "cosine"):
+        def alpha_bar(t):
+            return math.cos((t + 0.008) / 1.008 * math.pi / 2) ** 2
+
+        return torch.tensor(
+            [min(1.0 - alpha_bar((i + 1) / num_steps) / alpha_bar(i / num_steps), 0.999)
+             for i in range(num_steps)], dtype=torch.float32)
+    raise ValueError(f"Unknown beta schedule: {schedule}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,12 +62,7 @@ class DiffusionSchedule:
         beta_end: float = 0.02,
         clip_sample: bool = True,
     ) -> "DiffusionSchedule":
-        if beta_schedule != "linear":
-            raise NotImplementedError(
-                f"beta_schedule={beta_schedule!r}: the port has the linear "
-                "schedule only"
-            )
-        betas = torch.linspace(beta_start, beta_end, num_steps, dtype=torch.float32)
+        betas = make_beta_schedule(beta_schedule, num_steps, beta_start, beta_end)
         return cls(
             num_train_timesteps=num_steps,
             betas=betas,

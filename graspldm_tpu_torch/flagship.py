@@ -1,7 +1,8 @@
 """Flagship model factory: the fpc_1a_latentc3_z4_pc64 GraspLDM configuration.
 
 Counterpart of :mod:`graspldm_tpu.flagship`: pc 1024 points -> z_pc [3, 64];
-grasp latent 4; linear betas 5e-5..1e-3, T=1000, fixed_large, epsilon
+grasp latent 4; linear betas 5e-5..1e-3 (or ``beta_schedule``
+"scaled_linear" / "squaredcos_cap_v2"), T=1000, fixed_large, epsilon
 prediction; or, with ``elucidated=True``, EDM diffusion sampled in
 ``edm_num_sample_steps`` (32) steps by default. The ppc flagship is
 ``FlagshipConfig(pc_latent_size=256, grasp_latent_size=16)``.
@@ -49,6 +50,7 @@ class FlagshipConfig:
     diffusion_timesteps: int = 1000
     beta_start: float = 5e-5
     beta_end: float = 1e-3
+    # "linear", "scaled_linear", "squaredcos_cap_v2" / "cosine" (DDPM/DDIM)
     beta_schedule: str = "linear"
     variance_type: str = "fixed_large"
     # compute dtype of the denoiser and decoder kernels (None = float32)

@@ -44,6 +44,11 @@ points: one step each (``ddim_step_plain``, ``dpmpp_step_plain``,
 ``dpmpp_sampler_plain``, ``churn_sampler_plain``) as loops over them. A
 wrapper runs the plain version for CPU tensors and launches the kernel (or
 raises) for CUDA tensors.
+
+With attention between launches (``stacked_cuda.XLA_ATTENTION``) at
+L > 4 the samplers and every sampler wrapper raise ``ValueError``, as
+``pallas_sampler.py:fused_sample`` and its EDM siblings do: these kernels
+run the attention inside the network.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from .stacked_cuda import (
     _ptr,
     _rnd,
     _stage_core,
+    _use_xla_attention,
     init_conv,
 )
 from .stacked_denoiser import compute_time_emb
@@ -156,6 +162,12 @@ def sampler_plain(w: PackedNet, x_T, embin, trows, coefs, noise, clip: bool,
     return x
 
 
+def _in_kernel_attention(w: PackedNet, name: str) -> None:
+    """The refusal of ``pallas_sampler.py:768`` / ``:976`` / ``:1165``."""
+    if _use_xla_attention(w.dims):
+        raise ValueError(f"{name} requires in-kernel attention")
+
+
 def _stream(x: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
 
@@ -202,6 +214,7 @@ def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
     [S, Ce*E]`` the per-step time rows, ``coefs [S, 8]`` from
     :func:`_step_coeffs`, ``noise [S, BG, L]`` for DDPM (None for DDIM).
     """
+    _in_kernel_attention(w, "sampler_apply")
     if not on_cuda(x_T):
         return sampler_plain(w, x_T, embin, trows, coefs, noise, clip, clip_range)
     from ..cuda_build import load_library
@@ -234,6 +247,7 @@ def ddim_step_apply(w: PackedNet, x, embin, trow, coef, noise_s=None, clip=True,
     for DDIM). ``check=False`` skips the operand checks: a trajectory
     checks its tables once, not at every step.
     """
+    _in_kernel_attention(w, "ddim_step_apply")
     if not on_cuda(x):
         res = ddim_step_plain(w, x, embin, trow, coef, noise_s, clip, clip_range)
         return res if out is None else out.copy_(res)
@@ -300,6 +314,7 @@ def fused_sample(
         ``(x_0, trajectory [len(grid) + 1, BG, 1, L])``, x_T first, as
         ``pallas_sampler.py:fused_sample`` returns them.
     """
+    _in_kernel_attention(w, "fused_sample")
     if sampler not in ("ddim", "ddpm"):
         raise ValueError(f"Unknown sampler: {sampler}")
     device = x_T.device
@@ -390,6 +405,7 @@ def dpmpp_sampler_plain(w: PackedNet, x_T, embin, trows, coefs, clamp: bool) -> 
 def dpmpp_sampler_apply(w: PackedNet, x_T, embin, trows, coefs, clamp=False) -> torch.Tensor:
     """All N DPM-Solver++(2M) steps for ``x_T [BG, L]`` (fp32, at sigma_max
     scale) -> ``x_0 [BG, L]`` (fp32); operands from :func:`dpmpp_tables`."""
+    _in_kernel_attention(w, "dpmpp_sampler_apply")
     if not on_cuda(x_T):
         return dpmpp_sampler_plain(w, x_T, embin, trows, coefs, clamp)
     from ..cuda_build import load_library
@@ -415,6 +431,7 @@ def dpmpp_step_apply(w: PackedNet, x, old, embin, trow, coef, clamp=False, out=N
     denoised estimate ``old [BG, L]`` -> ``(x_new, denoised)``, written into
     ``out`` / ``den_out`` when given. ``trow`` / ``coef`` are row s of
     :func:`dpmpp_tables`' tables; ``check`` as in :func:`ddim_step_apply`."""
+    _in_kernel_attention(w, "dpmpp_step_apply")
     if not on_cuda(x):
         x_new, den = dpmpp_step_plain(w, x, old, embin, trow, coef, clamp)
         return (x_new if out is None else out.copy_(x_new),
@@ -452,6 +469,7 @@ def fused_sample_dpmpp(
         ``(x_0, trajectory [N, BG, 1, L])``, the state after each step
         (no x_T), as ``pallas_sampler.py:fused_sample_dpmpp`` returns them.
     """
+    _in_kernel_attention(w, "fused_sample_dpmpp")
     N = num_sample_steps or ed.num_sample_steps
     embin, trows, coefs = dpmpp_tables(w, ed, input_emb, N)
     x_T = x_T.float().contiguous()
@@ -543,6 +561,7 @@ def churn_sampler_apply(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, 
     """All N churn steps (two network evaluations each) for ``x_T [BG, L]``
     (fp32, at sigma_max scale) with per-step unit normals ``noise [N, BG,
     L]`` -> ``x_0 [BG, L]`` (fp32); operands from :func:`churn_tables`."""
+    _in_kernel_attention(w, "churn_sampler_apply")
     if not on_cuda(x_T):
         return churn_sampler_plain(w, x_T, embin, trowsA, trowsB, coefA, coefB, noise, clamp)
     from ..cuda_build import load_library
@@ -570,6 +589,7 @@ def churn_step_apply(w: PackedNet, x, embin, trowA, trowB, coefA, coefB, noise_s
     ``out`` when given. ``trowA`` / ``trowB`` / ``coefA`` / ``coefB`` are
     row s of :func:`churn_tables`' tables; ``check`` as in
     :func:`ddim_step_apply`."""
+    _in_kernel_attention(w, "churn_step_apply")
     if not on_cuda(x):
         res = churn_step_plain(w, x, embin, trowA, trowB, coefA, coefB, noise_s, clamp)
         return res if out is None else out.copy_(res)
@@ -611,6 +631,7 @@ def fused_sample_churn(
         ``(x_0, trajectory [N + 1, BG, 1, L])``, x_T first, as
         ``pallas_sampler.py:fused_sample_churn`` returns them.
     """
+    _in_kernel_attention(w, "fused_sample_churn")
     N = num_sample_steps or ed.num_sample_steps
     embin, trowsA, trowsB, coefA, coefB = churn_tables(w, ed, input_emb, N)
     if noise is None:

@@ -3,8 +3,13 @@
 Counterpart of :mod:`graspldm_tpu.models.fast_decoder`. The decoder core is
 a plain conditional ResNet1D (no time head) at L = 16; it runs through the
 stage kernels (:mod:`.stacked_cuda`: four ``stage_kernel`` launches and one
-``final_kernel``). The in-layer ``Linear(latent -> L)`` and the output heads
-stay plain PyTorch around the kernels, as they stay XLA in the JAX package.
+``final_kernel``), or, with attention between launches
+(``stacked_cuda.XLA_ATTENTION``), through four ``hybrid_stage_kernel``
+launches, the attention in plain PyTorch after each, and one
+``hybrid_final_kernel``: ``stacked_denoiser_apply`` picks the chain, as
+the JAX package's ``decoder_fast_apply`` does (``fast_decoder.py:83``).
+The in-layer ``Linear(latent -> L)`` and the output heads stay plain
+PyTorch around the kernels, as they stay XLA in the JAX package.
 """
 
 from __future__ import annotations

@@ -24,9 +24,12 @@ class GraspLatentDDM(TimeConditionedResNet1D):
     """Conditional epsilon-prediction denoiser ``(x [B,1,D], t [B],
     z_cond [B, C_pc, D_pc]) -> eps [B, 1, D]``.
 
-    ``dtype`` is the declared compute dtype of the generation kernels
-    (``None`` = float32); the module's own forward runs in its parameter
-    dtype. ``conditioning`` names the extra condition a subclass takes
+    ``dtype`` is the declared compute dtype (``None`` = float32) of the
+    generation kernels and of ``forward(..., dtype=ddm.dtype)``, which the
+    plain-module generation route calls; without it ``forward`` runs in
+    the parameter dtype. ``learned_sinusoidal_cond`` (with
+    ``random_fourier_features=False``) learns the Fourier time features.
+    ``conditioning`` names the extra condition a subclass takes
     (:mod:`.conditioning`); None here.
     """
 
@@ -36,7 +39,8 @@ class GraspLatentDDM(TimeConditionedResNet1D):
                  block_channels: Sequence[int] = (32, 64, 128, 256),
                  resnet_block_groups: int = 4, dropout: Optional[float] = 0.1,
                  random_fourier_features: bool = True,
-                 learned_sinusoidal_dim: int = 16, dtype: Optional[torch.dtype] = None):
+                 learned_sinusoidal_dim: int = 16, dtype: Optional[torch.dtype] = None,
+                 learned_sinusoidal_cond: bool = False):
         super().__init__(
             dim=latent_in_features,
             block_channels=block_channels,
@@ -44,6 +48,7 @@ class GraspLatentDDM(TimeConditionedResNet1D):
             input_conditioning_dims=pc_latent_size,
             resnet_block_groups=resnet_block_groups,
             dropout=dropout,
+            learned_sinusoidal_cond=learned_sinusoidal_cond,
             random_fourier_features=random_fourier_features,
             learned_sinusoidal_dim=learned_sinusoidal_dim,
         )

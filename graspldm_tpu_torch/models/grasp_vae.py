@@ -89,7 +89,8 @@ class GraspCVAE(nn.Module):
                  pc_num_points: int = 1024, pc_scale_channels: float = 0.75,
                  pc_scale_voxel_resolution: float = 0.75,
                  pc_num_blocks: Sequence[int] = (1, 1, 1, 1),
-                 decoder_dtype: Optional[torch.dtype] = None):
+                 decoder_dtype: Optional[torch.dtype] = None,
+                 pc_use_global_attention: bool = False):
         super().__init__()
         self.grasp_latent_size = grasp_latent_size
         self.pc_latent_size = pc_latent_size
@@ -109,6 +110,7 @@ class GraspCVAE(nn.Module):
                 scale_channels=pc_scale_channels,
                 scale_voxel_resolution=pc_scale_voxel_resolution,
                 num_blocks=pc_num_blocks, out_channels=pc_latent_channels,
+                use_global_attention=pc_use_global_attention,
             ),
             _ConditionalCore(grasp_representation_dims, out_features=grasp_latent_size,
                              **core),

@@ -32,6 +32,7 @@ __all__ = [
     "Block1D",
     "ResnetBlock1D",
     "LinearAttention1D",
+    "Attention1D",
     "PreNorm",
     "Residual",
     "cast_apply",
@@ -243,3 +244,30 @@ class LinearAttention1D(nn.Module):
         context = torch.einsum("bhdn,bhen->bhde", k, v)
         out = torch.einsum("bhde,bhdn->bhen", context, q).reshape(B, -1, L)
         return self.to_out[1](cast_apply(self.to_out[0], out, dtype))
+
+
+class Attention1D(nn.Module):
+    """Full softmax attention over the length axis, ``[B, C, L] -> [B, C, L]``
+    (no residual, no norm). Counterpart of the JAX package's
+    ``layers.Attention1D``: q scaled by ``dim_head ** -0.5`` in the compute
+    dtype, the ``sim`` and ``out`` products accumulated in float32 and cast
+    back to the input's dtype, the softmax in float32."""
+
+    def __init__(self, dim: int, heads: int = 4, dim_head: int = 32):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        hidden = heads * dim_head
+        self.to_qkv = nn.Conv1d(dim, hidden * 3, 1, bias=False)
+        self.to_out = nn.Conv1d(hidden, dim, 1)
+
+    def forward(self, x, dtype: Optional[torch.dtype] = None):
+        B, _, L = x.shape
+        q, k, v = (
+            t.reshape(B, self.heads, self.dim_head, L)
+            for t in cast_apply(self.to_qkv, x, dtype).chunk(3, dim=1)
+        )
+        q = q * (self.dim_head ** -0.5)
+        sim = torch.einsum("bhdi,bhdj->bhij", q.float(), k.float())
+        attn = sim.softmax(dim=-1).to(x.dtype)
+        out = torch.einsum("bhij,bhdj->bhdi", attn.float(), v.float()).to(x.dtype)
+        return cast_apply(self.to_out, out.reshape(B, -1, L), dtype)

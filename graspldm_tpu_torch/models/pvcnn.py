@@ -7,6 +7,10 @@ reference PVCNN; module names follow its key space
 ``point_features.layers.{j}``, ``conv_downscale``, ``out_layer``), which
 :func:`graspldm_tpu.utils.torch_convert.pvcnn_encoder_params_from_torch`
 reads. All of it is plain PyTorch: the JAX package runs it as plain XLA.
+``PVConv(use_attention=True)`` runs full softmax attention over the r^3
+voxels in place of its second SiLU (``voxel_layers.6``), and
+``PVCNNEncoder(use_global_attention=True)`` a single-head attention block
+over the points after ``conv_downscale`` (``global_attention``).
 """
 
 from __future__ import annotations
@@ -14,11 +18,14 @@ from __future__ import annotations
 from typing import Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from ..ops import avg_voxelize, normalize_coords_for_voxelization, trilinear_devoxelize
+from .layers import Attention1D
 
-__all__ = ["SharedMLP", "SE", "PVConv", "PVCNN", "PVCNNEncoder", "pvcnn_block_spec"]
+__all__ = ["SharedMLP", "SE", "VoxelAttention", "PVConv", "PVCNN", "GlobalAttention",
+           "PVCNNEncoder", "pvcnn_block_spec"]
 
 
 class SharedMLP(nn.Module):
@@ -54,15 +61,25 @@ class SE(nn.Module):
         return x * s[:, :, None, None, None]
 
 
+class VoxelAttention(Attention1D):
+    """:class:`.layers.Attention1D` over the r^3 voxels of ``[B, C, r, r, r]``."""
+
+    def forward(self, x, dtype: Optional[torch.dtype] = None):
+        return super().forward(x.flatten(2), dtype).reshape(x.shape)
+
+
 class PVConv(nn.Module):
     """Voxel Conv3d branch + per-point MLP branch, summed.
 
     Voxel coords are radius-normalized only with ``normalize`` (the JAX
     module's default is not to; PVCNN2 sets it, with ``with_se_relu``); the
-    Dropout(0.1) keeps the reference's layer numbering (``voxel_layers.3``)."""
+    Dropout(0.1) keeps the reference's layer numbering (``voxel_layers.3``).
+    ``use_attention`` puts :class:`VoxelAttention` in place of the second
+    SiLU (``voxel_layers.6``), as the JAX module does."""
 
     def __init__(self, in_channels: int, out_channels: int, resolution: int,
-                 normalize: bool = False, with_se_relu: bool = False):
+                 normalize: bool = False, with_se_relu: bool = False,
+                 use_attention: bool = False):
         super().__init__()
         self.resolution, self.normalize = resolution, normalize
         self.voxel_layers = nn.Sequential(
@@ -72,7 +89,7 @@ class PVConv(nn.Module):
             nn.Dropout(0.1),
             nn.Conv3d(out_channels, out_channels, 3, padding=1),
             nn.GroupNorm(8, out_channels, eps=1e-5),
-            nn.SiLU(),
+            VoxelAttention(out_channels) if use_attention else nn.SiLU(),
             SE(out_channels, use_relu=with_se_relu),
         )
         self.point_features = SharedMLP(in_channels, [out_channels])
@@ -129,20 +146,37 @@ class PVCNN(nn.Module):
         return features
 
 
+class GlobalAttention(nn.Module):
+    """Single-head full attention over the points of ``[B, C, N]`` (no
+    scaling), a residual add, then GroupNorm(8) and SiLU. Counterpart of
+    the JAX package's ``pvcnn._GlobalAttention``."""
+
+    def __init__(self, channels: int, num_groups: int = 8):
+        super().__init__()
+        self.q, self.k, self.v, self.out = (nn.Conv1d(channels, channels, 1) for _ in range(4))
+        self.norm = nn.GroupNorm(num_groups, channels, eps=1e-5)
+
+    def forward(self, x):
+        w = torch.einsum("bci,bcj->bij", self.q(x), self.k(x)).softmax(dim=-1)
+        h = self.out(torch.einsum("bij,bcj->bci", w, self.v(x)))
+        return F.silu(self.norm(x + h))
+
+
 class PVCNNEncoder(nn.Module):
     """Point cloud ``[B, N, 3]`` -> ``z_pc [B, out_channels, out_features]``
-    (squeezed to ``[B, out_features]`` when ``out_channels == 1``)."""
+    (squeezed to ``[B, out_features]`` when ``out_channels == 1``);
+    ``use_global_attention`` adds :class:`GlobalAttention` after
+    ``conv_downscale``."""
 
     def __init__(self, out_features: int = 32, n_points: int = 1024,
                  scale_channels: float = 0.25, scale_voxel_resolution: float = 0.75,
                  num_blocks: Sequence[int] = (1, 1, 1, 1),
                  use_global_attention: bool = False, out_channels: int = 1):
         super().__init__()
-        if use_global_attention:
-            raise NotImplementedError("PVCNNEncoder global attention is not ported yet")
         self.pvcnn_modules = PVCNN(3, scale_channels, scale_voxel_resolution, num_blocks)
         half = self.pvcnn_modules.out_channels // 2
         self.conv_downscale = nn.Conv1d(self.pvcnn_modules.out_channels, half, 1)
+        self.global_attention = GlobalAttention(half) if use_global_attention else None
         self.out_layer = nn.Sequential(
             nn.Conv1d(half, out_channels, 1), nn.Linear(n_points, out_features)
         )
@@ -150,5 +184,8 @@ class PVCNNEncoder(nn.Module):
 
     def forward(self, xyz: torch.Tensor) -> torch.Tensor:
         out = self.pvcnn_modules(xyz.transpose(1, 2))
-        out = self.out_layer(self.conv_downscale(out))  # [B, C_out, F]
+        out = self.conv_downscale(out)
+        if self.global_attention is not None:
+            out = self.global_attention(out)
+        out = self.out_layer(out)  # [B, C_out, F]
         return out.squeeze(1) if self.out_channels == 1 else out

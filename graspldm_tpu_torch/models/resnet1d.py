@@ -137,18 +137,23 @@ class TimeConditionedResNet1D(_ResNet1DBase):
         )
 
     def forward(self, x, time, z_cond: Optional[torch.Tensor] = None,
-                extra_emb: Optional[torch.Tensor] = None):
+                extra_emb: Optional[torch.Tensor] = None,
+                dtype: Optional[torch.dtype] = None):
         """``extra_emb [B, emb]`` (the class / region embedding of the
         conditioned denoisers) is added to the time embedding before the
-        broadcast over the conditioning channels."""
-        latent_emb = self.time_mlp(time)
+        broadcast over the conditioning channels. ``dtype`` computes the
+        time MLP, the input embedding and the core in it, as the flax module
+        declared with that ``dtype`` does (the Fourier features stay
+        float32)."""
+        mlp = self.time_mlp
+        latent_emb = cast_apply(mlp[3], mlp[2](cast_apply(mlp[1], mlp[0](time), dtype)), dtype)
         if extra_emb is not None:
             latent_emb = latent_emb + extra_emb
         if self.input_emb_layers is not None:
             if z_cond is None:
                 raise ValueError("model is input-conditioned; z_cond required")
-            input_emb = self.input_emb_layers(z_cond)
+            input_emb = F.silu(cast_apply(self.input_emb_layers[0], z_cond, dtype))
             if input_emb.ndim == 3:
                 latent_emb = latent_emb[:, None, :]
             latent_emb = latent_emb + input_emb
-        return self._core(x, latent_emb)
+        return self._core(x, latent_emb, dtype)

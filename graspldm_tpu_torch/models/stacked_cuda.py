@@ -14,13 +14,23 @@ built from ``csrc/resnet1d_blocks.cuh``:
   stages. :func:`stacked_denoiser_apply` runs it with ``fuse_stages=True``
   (the guided samplers' denoiser), the stage chain otherwise (the decoder).
 
+* ``hybrid_stage_kernel`` and ``hybrid_final_kernel`` (``csrc/hybrid.cu``)
+  replace ``stacked_pallas.py:_hybrid_stage_kernel`` and
+  ``_hybrid_final_kernel``: the route with attention between launches
+  (:data:`XLA_ATTENTION`, L > 4). Hybrid stage i runs stage i - 1's k3
+  projection (i > 0) and stage i's two ResnetBlocks, and stops before the
+  attention, which runs in plain PyTorch between the launches
+  (:func:`.stacked_denoiser.attention_stacked`); the hybrid final kernel
+  runs the last stage's projection, the final ResnetBlock and the head.
+
 All are generic over L (4 for the denoiser, 16 for the VAE decoder) and the
 stage widths, and take float32 or bfloat16 activations and weights. What
 bounds them on the H100 and what the design does about it is in the notes
-at the top of ``csrc/kernels.cu`` and ``csrc/full_net.cu``.
+at the top of ``csrc/kernels.cu``, ``csrc/full_net.cu`` and ``csrc/hybrid.cu``.
 
 Beside each kernel is its plain PyTorch version (``stage_plain``,
-``final_plain``, ``full_plain``): same math, rounding to the compute dtype
+``final_plain``, ``full_plain``, ``hybrid_stage_plain``,
+``hybrid_final_plain``): same math, rounding to the compute dtype
 at the same points. A wrapper runs the plain version for a CPU tensor and
 launches the kernel for a CUDA tensor, raising if the launch fails; it
 never falls back. Each wrapper counts its kernel launches
@@ -36,20 +46,27 @@ import torch
 import torch.nn.functional as F
 
 from ..cuda_build import KernelCounter, check_launch, on_cuda
-from .stacked_denoiser import DenoiserDims, compute_emb_s_stacked
+from .stacked_denoiser import DenoiserDims, attention_stacked, compute_emb_s_stacked
 
 __all__ = [
     "KernelCounter",
     "STAGE_KERNEL",
     "FINAL_KERNEL",
     "FULL_KERNEL",
+    "HYBRID_STAGE_KERNEL",
+    "HYBRID_FINAL_KERNEL",
+    "XLA_ATTENTION",
     "PackedNet",
     "stage_plain",
     "final_plain",
     "full_plain",
+    "hybrid_stage_plain",
+    "hybrid_final_plain",
     "stage_apply",
     "final_apply",
     "full_apply",
+    "hybrid_stage_apply",
+    "hybrid_final_apply",
     "init_conv",
     "stacked_denoiser_apply",
 ]
@@ -68,6 +85,22 @@ LN_EPS = 1e-5  # the kernel path's LayerNorm eps in every dtype (as stacked_pall
 STAGE_KERNEL = KernelCounter("stage_kernel")
 FINAL_KERNEL = KernelCounter("final_kernel")
 FULL_KERNEL = KernelCounter("full_kernel")
+HYBRID_STAGE_KERNEL = KernelCounter("hybrid_stage_kernel")
+HYBRID_FINAL_KERNEL = KernelCounter("hybrid_final_kernel")
+
+# Attention placement, the counterpart of stacked_pallas.XLA_ATTENTION (off
+# by default there too). True routes an L > 4 network through the hybrid
+# kernels, with the attention in plain PyTorch between the launches: "XLA"
+# in the name is the JAX package's word for what runs outside its kernels,
+# here plain PyTorch. The whole-trajectory and per-step sampler kernels and
+# ``fuse_stages`` refuse it, as the JAX package's do.
+XLA_ATTENTION = False
+
+
+def _use_xla_attention(dims: DenoiserDims) -> bool:
+    """Attention between launches (:data:`XLA_ATTENTION`) at L > 4, as
+    ``stacked_pallas.py:_use_xla_attention``."""
+    return XLA_ATTENTION and dims.seq_len > 4
 
 
 class PackedNet:
@@ -232,6 +265,34 @@ def final_plain(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tenso
     return _final_core(w, x.float().reshape(x.shape[0], L, -1), emb_sum(w, emb)).to(w.dtype)
 
 
+def _hybrid_open(w: PackedNet, i: int, x):
+    """Stage ``i - 1``'s k3 projection, with which hybrid stage ``i`` (or the
+    hybrid final block, ``i`` = n_stages) opens; stage 0 opens on x."""
+    if i == 0:
+        return x
+    return _rnd(_conv3(x, w.v(f"b{i - 1}_wp"), w.v(f"b{i - 1}_bp")), w.dtype)
+
+
+def hybrid_stage_plain(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``hybrid_stage_kernel``: ``x [BG, L*C_{i-1}]`` (stage
+    0: the init conv's ``[BG, L*C_0]``) -> ``[BG, L*C_i]``, ``C_i`` =
+    ``dims.cins[i]``: stage i - 1's projection, then stage i's two
+    ResnetBlocks."""
+    L, esum = w.dims.seq_len, emb_sum(w, emb)
+    h = _hybrid_open(w, i, x.float().reshape(x.shape[0], L, -1))
+    h = _resblock(w, f"b{i}r2", _resblock(w, f"b{i}r1", h, esum), esum)
+    return h.reshape(x.shape[0], -1).to(w.dtype)
+
+
+def hybrid_final_plain(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Plain version of ``hybrid_final_kernel``: ``x [BG, L*C_{n-1}]`` ->
+    ``[BG, L]``: the last stage's projection, the final ResnetBlock, the
+    head."""
+    L, n = w.dims.seq_len, len(w.dims.block_channels)
+    h = _hybrid_open(w, n, x.float().reshape(x.shape[0], L, -1))
+    return _final_core(w, h, emb_sum(w, emb)).to(w.dtype)
+
+
 def full_plain(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
     """Plain version of ``full_kernel``: ``x [BG, L*dim0]`` (the init conv's
     output) -> ``[BG, L]``, the chain of :func:`stage_plain` over every stage
@@ -330,6 +391,48 @@ def full_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor
     return out
 
 
+def _hybrid_launch(fn: str, counter: KernelCounter, w: PackedNet, i: int, x: torch.Tensor,
+                   emb: torch.Tensor, out_cols: int, C: int) -> torch.Tensor:
+    """Launch hybrid kernel ``fn`` for record ``i`` (stage i, or the final
+    block at i = n_stages), whose input is ``[BG, L*C_{i-1}]``."""
+    from ..cuda_build import load_library
+
+    d = w.dims
+    L, BG = d.seq_len, x.shape[0]
+    Cin = d.cins[max(i - 1, 0)]
+    _check("x", x, (BG, L * Cin), w.dtype, w.device)
+    _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
+    out = torch.empty((BG, out_cols), dtype=w.dtype, device=x.device)
+    rc = getattr(load_library(), fn)(
+        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), i, _ptr(out),
+        BG, L, Cin, C, d.emb_dim, d.cond_channels, d.groups,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+    )
+    check_launch(rc, counter.name)
+    counter.launches += 1
+    return out
+
+
+def hybrid_stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Hybrid stage ``i`` on ``x [BG, L*C_{i-1}]`` with FiLM input ``emb
+    [BG, Ce*E]`` -> ``[BG, L*C_i]`` (see :func:`hybrid_stage_plain`)."""
+    if not on_cuda(x):
+        return hybrid_stage_plain(w, i, x, emb)
+    C = w.dims.cins[i]
+    return _hybrid_launch("gl_hybrid_stage_forward", HYBRID_STAGE_KERNEL, w, i, x, emb,
+                          w.dims.seq_len * C, C)
+
+
+def hybrid_final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
+    """Hybrid final block on ``x [BG, L*C_{n-1}]`` -> ``[BG, L]`` (see
+    :func:`hybrid_final_plain`)."""
+    if not on_cuda(x):
+        return hybrid_final_plain(w, x, emb)
+    d = w.dims
+    return _hybrid_launch("gl_hybrid_final_forward", HYBRID_FINAL_KERNEL, w,
+                          len(d.block_channels), x, emb, d.seq_len, d.block_channels[-1])
+
+
 def init_conv(w: PackedNet, x: torch.Tensor) -> torch.Tensor:
     """Init conv (1 -> dim0 channels, k7) on ``x [BG, L]`` (rounded to the
     compute dtype first) -> float32 values ``[BG, L, dim0]`` rounded to it.
@@ -353,10 +456,21 @@ def stacked_denoiser_apply(
     The FiLM input and the init conv run in plain PyTorch, as XLA runs
     them in the JAX package; then ``fuse_stages=False`` launches one
     ``stage_kernel`` per stage and ``final_kernel``, ``True`` one
-    ``full_kernel``."""
+    ``full_kernel``. With attention between launches
+    (:data:`XLA_ATTENTION`) at L > 4, as ``stacked_denoiser_pallas_apply``
+    does: one ``hybrid_stage_kernel`` launch per stage, each followed by
+    the stage's attention in plain PyTorch, then ``hybrid_final_kernel``;
+    ``fuse_stages=True`` raises ``ValueError`` there."""
     emb = compute_emb_s_stacked(w.aux, t, z_cond, input_emb).to(w.dtype)
     BG = x.shape[0]
     h = init_conv(w, x[:, 0, :]).reshape(BG, -1).to(w.dtype)
+    if _use_xla_attention(w.dims):
+        if fuse_stages:
+            raise ValueError("fuse_stages is unsupported for L > 4 with attention between "
+                             "launches (XLA_ATTENTION; see _use_xla_attention)")
+        for i in range(len(w.dims.block_channels)):
+            h = attention_stacked(w.w, i, hybrid_stage_apply(w, i, h, emb), w.dims)
+        return hybrid_final_apply(w, h, emb)[:, None, :]
     if fuse_stages:
         return full_apply(w, h, emb)[:, None, :]
     for i in range(len(w.dims.block_channels)):

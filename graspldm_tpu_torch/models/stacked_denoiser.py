@@ -2,7 +2,9 @@
 
 Counterpart of the helpers of :mod:`graspldm_tpu.models.stacked_denoiser`
 (``compute_time_emb``, ``compute_input_emb``, ``compute_extra_emb``,
-``compute_emb_s_stacked``) plus :func:`pack_math_weights`, which turns a ResNet1D core's parameters
+``compute_emb_s_stacked``, and ``_attention_stacked`` as
+:func:`attention_stacked`, the attention that runs between the hybrid
+kernel launches) plus :func:`pack_math_weights`, which turns a ResNet1D core's parameters
 into the kernels' operands in their *math* form: weight-standardized k3
 conv taps as ``[3*Cin, Cout]`` matrices (standardized once, as
 ``graspldm_tpu/models/fused_denoiser.py:_standardize`` does), GroupNorm
@@ -29,6 +31,7 @@ __all__ = [
     "compute_input_emb",
     "compute_extra_emb",
     "compute_emb_s_stacked",
+    "attention_stacked",
 ]
 
 
@@ -158,3 +161,60 @@ def compute_emb_s_stacked(w, t: Optional[torch.Tensor], z_cond=None, input_emb=N
         input_emb = compute_input_emb(w, z_cond)
     latent = input_emb if t is None else compute_time_emb(w, t)[:, None, :] + input_emb
     return F.silu(latent).reshape(latent.shape[0], -1)
+
+
+def _rnd(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return x if dtype == torch.float32 else x.to(dtype).float()
+
+
+def _channel_ln_stacked(x: torch.Tensor, g: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Per-position channel LayerNorm of ``x [B, L, C]`` (float32 values of
+    ``dtype``), as ``stacked_denoiser.py:_channel_ln_stacked``: one-pass
+    variance ``E[x^2] - mean^2`` clamped at 0, mean and rsqrt in float32 and
+    rounded to ``dtype`` before the subtract and the multiplies, which
+    round."""
+    mean = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mean * mean).clamp(min=0.0)
+    inv = _rnd(torch.rsqrt(var + 1e-5), dtype)
+    xn = _rnd(_rnd(x - _rnd(mean, dtype), dtype) * inv, dtype)
+    return _rnd(xn * g, dtype)
+
+
+def _softmax(x: torch.Tensor, dim: int, dtype: torch.dtype) -> torch.Tensor:
+    """``jax.nn.softmax`` in ``dtype`` as XLA computes it: the shift rounded,
+    the exponential in float32, its float32 sum rounded, the quotient of
+    the rounded exponential by that sum rounded."""
+    e = torch.exp(_rnd(x - x.amax(dim, keepdim=True), dtype))
+    return _rnd(_rnd(e, dtype) / _rnd(e.sum(dim, keepdim=True), dtype), dtype)
+
+
+def attention_stacked(w: Dict[str, torch.Tensor], i: int, x: torch.Tensor,
+                      dims: DenoiserDims) -> torch.Tensor:
+    """Residual linear attention of stage ``i`` on ``x [BG, L*C]`` (compute
+    dtype) -> ``[BG, L*C]``: what ``stacked_denoiser.py:_attention_stacked``
+    computes between the hybrid kernel launches, rounded where it rounds.
+
+    ``w`` holds the stage's math weights in the compute dtype
+    (``PackedNet.w``: ``b{i}_attn_g``, ``b{i}_wqkv``, ``b{i}_wo``,
+    ``b{i}_bo``, ``b{i}_out_g``). Unlike the in-kernel attention
+    (``stacked_cuda._attention``), the LayerNorms take one-pass statistics,
+    the softmaxes and products run in the compute dtype, the output
+    LayerNorm follows the ``Wo`` bias and the residual adds in the compute
+    dtype. Plain PyTorch on every device, as XLA runs it in the JAX
+    package."""
+    dt = x.dtype
+    BG, L = x.shape[0], dims.seq_len
+    H, D = dims.heads, dims.dim_head
+    xf = x.float().reshape(BG, L, -1)
+    v_ = {k: w[f"b{i}_{k}"].float() for k in ("attn_g", "wqkv", "wo", "bo", "out_g")}
+    n = _channel_ln_stacked(xf, v_["attn_g"], dt)
+    q, k, v = (_rnd(n @ m, dt).reshape(BG, L, H, D)
+               for m in v_["wqkv"].split(H * D, dim=-1))
+    # over the head channels; the Python scale is a weak type: rounded to dt
+    q = _rnd(_softmax(q, -1, dt) * _rnd(torch.tensor(D ** -0.5), dt), dt)
+    k = _softmax(k, 1, dt)  # over the positions
+    s = _rnd(torch.einsum("blhd,bmhd->bhlm", q, k), dt)
+    o = _rnd(torch.einsum("bhlm,bmhd->blhd", s, v), dt).reshape(BG, L, H * D)
+    o = _rnd(_rnd(o @ v_["wo"], dt) + v_["bo"], dt)
+    out = _rnd(xf + _channel_ln_stacked(o, v_["out_g"], dt), dt)
+    return out.reshape(BG, -1).to(dt)

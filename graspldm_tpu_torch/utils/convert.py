@@ -26,6 +26,8 @@ __all__ = [
     "class_conditioned_ldm_state_dict",
     "region_conditioned_ldm_state_dict",
     "grasp_cvae_state_dict",
+    "pvconv_state_dict",
+    "pvcnn_encoder_state_dict",
     "pvcnn2_state_dict",
     "pvcnn2_encoder_state_dict",
     "pointnet2_state_dict",
@@ -99,7 +101,10 @@ def _resnet1d(sd: StateDict, pfx: str, params: Mapping, constants: Mapping) -> N
     if "time_mlp_1" in params:
         _linear(sd, f"{pfx}time_mlp.1", params["time_mlp_1"])
         _linear(sd, f"{pfx}time_mlp.3", params["time_mlp_2"])
-        sd[f"{pfx}time_mlp.0.weights"] = _t(constants["sinu_pos_emb"]["weights"])
+        # random Fourier weights are constants, learned sinusoidal ones params
+        pos = constants.get("sinu_pos_emb") or params.get("sinu_pos_emb")
+        if pos is not None:
+            sd[f"{pfx}time_mlp.0.weights"] = _t(pos["weights"])
 
 
 def _shared_mlp(sd: StateDict, pfx: str, p: Mapping, stats: Mapping) -> None:
@@ -121,14 +126,22 @@ def _conv3d(sd: StateDict, key: str, p: Mapping) -> None:
 
 def _pvconv(sd: StateDict, pfx: str, p: Mapping, s: Mapping) -> None:
     # voxel_layers: 0 Conv3d, 1 GN, 2 SiLU, 3 Dropout, 4 Conv3d, 5 GN,
-    # 6 SiLU, 7 SE (fc.0, fc.2)
+    # 6 SiLU or VoxelAttention (to_qkv, to_out), 7 SE (fc.0, fc.2)
     _conv3d(sd, f"{pfx}voxel_layers.0", p["voxel_conv1"])
     _norm(sd, f"{pfx}voxel_layers.1", p["voxel_norm1"])
     _conv3d(sd, f"{pfx}voxel_layers.4", p["voxel_conv2"])
     _norm(sd, f"{pfx}voxel_layers.5", p["voxel_norm2"])
+    if "voxel_attn" in p:
+        _attention1d(sd, f"{pfx}voxel_layers.6.", p["voxel_attn"])
     _linear(sd, f"{pfx}voxel_layers.7.fc.0", p["se"]["fc1"])
     _linear(sd, f"{pfx}voxel_layers.7.fc.2", p["se"]["fc2"])
     _shared_mlp(sd, f"{pfx}point_features.", p["point_features"], s["point_features"])
+
+
+def _attention1d(sd: StateDict, pfx: str, p: Mapping) -> None:
+    """flax ``Attention1D`` -> :class:`..models.layers.Attention1D` keys."""
+    _conv1x1(sd, f"{pfx}to_qkv", p["to_qkv"])
+    _conv1x1(sd, f"{pfx}to_out", p["to_out"])
 
 
 def _pvcnn_encoder(sd: StateDict, pfx: str, params: Mapping, stats: Mapping) -> None:
@@ -143,8 +156,28 @@ def _pvcnn_encoder(sd: StateDict, pfx: str, params: Mapping, stats: Mapping) -> 
             _shared_mlp(sd, stage, p, s)
         i += 1
     _conv1x1(sd, f"{pfx}conv_downscale", params["conv_downscale"])
+    if "global_attention" in params:
+        ga = params["global_attention"]
+        for name in ("q", "k", "v", "out"):
+            _conv1x1(sd, f"{pfx}global_attention.{name}", ga[name])
+        _norm(sd, f"{pfx}global_attention.norm", ga["norm"])
     _conv1x1(sd, f"{pfx}out_layer.0", params["out_conv"])
     _linear(sd, f"{pfx}out_layer.1", params["out_proj"])
+
+
+def pvcnn_encoder_state_dict(variables: Mapping) -> StateDict:
+    """PVCNNEncoder variables (``params``, ``batch_stats``) ->
+    :class:`..models.pvcnn.PVCNNEncoder` state dict."""
+    sd: StateDict = {}
+    _pvcnn_encoder(sd, "", variables["params"], variables["batch_stats"])
+    return sd
+
+
+def pvconv_state_dict(variables: Mapping) -> StateDict:
+    """PVConv variables -> :class:`..models.pvcnn.PVConv` state dict."""
+    sd: StateDict = {}
+    _pvconv(sd, "", variables["params"], variables["batch_stats"])
+    return sd
 
 
 def grasp_ldm_state_dict(variables: Mapping) -> StateDict:

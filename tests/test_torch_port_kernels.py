@@ -11,6 +11,7 @@ any other device is refused rather than quietly computed elsewhere.
 """
 
 import os
+import re
 import subprocess
 import sys
 from pathlib import Path
@@ -36,6 +37,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 def _counts():
     return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL,
+                                      sc.HYBRID_STAGE_KERNEL, sc.HYBRID_FINAL_KERNEL,
                                       cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL, cs.CHURN_KERNEL,
                                       cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
                                       cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL))
@@ -70,12 +72,23 @@ def test_port_never_imports_jax():
         "assert not bad, bad\n"
         "assert len(mods) >= 22, mods\n"
         "for need in ('models.conditioning', 'diffusion.guidance', 'models.pvcnn2',\n"
-        "             'ops.cuda_fps', 'ops.neighborhood', 'ops.sampling'):\n"
+        "             'ops.cuda_fps', 'ops.neighborhood', 'ops.sampling',\n"
+        "             'models.stacked_cuda', 'models.stacked_denoiser', 'models.layers',\n"
+        "             'models.pvcnn', 'diffusion.schedules', 'inference.pipeline'):\n"
         "    assert p.__name__ + '.' + need in mods, need\n"
+        "from graspldm_tpu_torch.models.stacked_cuda import hybrid_stage_apply\n"
+        "from graspldm_tpu_torch.models.stacked_denoiser import attention_stacked\n"
+        "from graspldm_tpu_torch.models.pvcnn import GlobalAttention, VoxelAttention\n"
+        "from graspldm_tpu_torch.models.layers import Attention1D\n"
+        "from graspldm_tpu_torch.inference.pipeline import resolve_denoiser_impl\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'graspldm_tpu'))\n"
+        "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    src = (REPO / "chip_smoke.py").read_text()
+    assert not re.search(r"^\s*(from|import)\s+(jax|flax|graspldm_tpu)\b", src, re.M)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
@@ -102,6 +115,26 @@ def test_wrappers_run_plain_versions_on_cpu(nets):
     x0 = torch.randn(5, d.seq_len * d.cins[0], generator=g)
     torch.testing.assert_close(sc.full_apply(w, x0, emb), sc.full_plain(w, x0, emb),
                                rtol=0, atol=0)
+    assert _counts() == before
+
+
+def test_hybrid_wrappers_run_plain_versions_on_cpu(nets):
+    """On CPU tensors the hybrid wrappers run their plain versions and count
+    no launch; stage 0 takes its own width, stage i the previous stage's."""
+    d = nets["dec_dims"]
+    w = sc.PackedNet(nets["dec_math"], d)
+    g = torch.Generator().manual_seed(3)
+    emb = torch.randn(5, d.cond_channels * d.emb_dim, generator=g)
+    before = _counts()
+    for i in range(len(d.block_channels) + 1):
+        x = torch.randn(5, d.seq_len * d.cins[max(i - 1, 0)], generator=g)
+        if i < len(d.block_channels):
+            got, ref = sc.hybrid_stage_apply(w, i, x, emb), sc.hybrid_stage_plain(w, i, x, emb)
+            assert got.shape == (5, d.seq_len * d.cins[i])
+        else:
+            got, ref = sc.hybrid_final_apply(w, x, emb), sc.hybrid_final_plain(w, x, emb)
+            assert got.shape == (5, d.seq_len)
+        torch.testing.assert_close(got, ref, rtol=0, atol=0)
     assert _counts() == before
 
 
@@ -321,6 +354,29 @@ def test_stage_and_final_kernels_match_plain_on_card(cuda, nets, dtype):
     torch.cuda.synchronize()
     ref = sc.final_plain(w, h, emb)
     torch.testing.assert_close(got.float(), ref.float(), **_rel(TOLS[dtype], ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_hybrid_kernels_match_plain_on_card(cuda, nets, dtype):
+    """``hybrid_stage_kernel`` (each stage, with the previous stage's
+    projection from stage 1 on) and ``hybrid_final_kernel`` against their
+    plain versions at a ragged BG = 4101, the decoder's L = 16."""
+    d = nets["dec_dims"]
+    w = sc.PackedNet(nets["dec_math"], d, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    BG = 4101
+    emb = torch.randn(BG, d.cond_channels * d.emb_dim, generator=g, device=cuda).to(dtype)
+    for i in range(len(d.block_channels) + 1):
+        x = torch.randn(BG, d.seq_len * d.cins[max(i - 1, 0)], generator=g, device=cuda).to(dtype)
+        final = i == len(d.block_channels)
+        counter = sc.HYBRID_FINAL_KERNEL if final else sc.HYBRID_STAGE_KERNEL
+        before = counter.launches
+        got = sc.hybrid_final_apply(w, x, emb) if final else sc.hybrid_stage_apply(w, i, x, emb)
+        torch.cuda.synchronize()
+        assert counter.launches == before + 1
+        ref = sc.hybrid_final_plain(w, x, emb) if final else sc.hybrid_stage_plain(w, i, x, emb)
+        torch.testing.assert_close(got.float(), ref.float(), **_rel(TOLS[dtype], ref))
 
 
 @pytest.mark.cuda
