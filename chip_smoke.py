@@ -94,10 +94,20 @@ any phase fails (every phase runs; the failures are listed at the end):
    (``denoiser_impl="module"``, and a learned-sinusoidal denoiser) card
    against CPU with no denoiser kernel launched; and
    ``PVCNNEncoder(use_global_attention=True)`` at the fpc width, B = 4 x
-   1024, card against CPU within ``TOL_PVCNN2``.
+   1024, card against CPU within ``TOL_PVCNN2``;
+11. the micro-benchmark path (``graspldm_tpu_torch/tools``): before the
+   main paths, ``mm_chain_kernel``, ``silu_chain_kernel`` and
+   ``bcast_chain_kernel`` in each of their three forms against their
+   plain versions at the tools' default R = 8192 (SiLU width 2048) and a
+   ragged R = 1021, each timed beside its plain version, its one-rep time
+   and one PyTorch library call (times the reps), and the SASS of the
+   built library read for tensor-core (HMMA) instructions; then the main
+   path: each tool's timing function (the one its ``main()`` calls) at
+   its defaults, its lines printed as ``main()`` prints them, every form's
+   output held against its plain version.
 
-The kernel launch counts are zeroed just before each main path (4 to 9)
-and read just after it; every call inside checks its exact counts, and
+The kernel launch counts are zeroed just before each main path (4 to 9
+and 11) and read just after it; every call inside checks its exact counts, and
 each launch is booked to the configuration (fpc or ppc) of its call. The
 script prints its wall time, then the kernels' JSON record, then as its
 last line ``{"ok": true, "device": {...}}``.
@@ -108,6 +118,8 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
+import re
 import subprocess
 import sys
 import threading
@@ -222,6 +234,40 @@ NEAR_TIE_3NN = 1e-5
 TOL_VOX = 1e-4
 TOL_PVCNN2 = 1e-4
 
+# The micro-benchmark entry points at the JAX tools' defaults (R rows, SiLU
+# width), a ragged R that the TPU grid (R // 512 blocks) would cut short,
+# and the tools' timed calls a form.
+MB_R, MB_RAGGED, MB_W, MB_ITERS = 8192, 1021, 2048, 10
+# mm_chain_kernel against its plain version, relative to max|ref|: the same
+# exact products summed in float32 in another order (the reps inside the K
+# loop in the kernel, rep by rep in the plain version). On an H100 80GB
+# HBM3 at 700 W this read 2.5e-6 (f32), 9.9e-7 (bf16) and 1.6e-6 (split).
+# The bf16 chains (silu_chain_kernel, bcast_chain_kernel) are held bitwise:
+# every op is one rounding of the same float32 value in the kernel and in
+# the plain version (measured: no entry differs, at R = 8192 and 1021).
+TOL_MM = 1e-5
+# mm_chain_kernel on a dense normal pool (pb = bf16(pf)), relative to
+# max|ref|: the terms have both signs, so the sums cancel (max|ref| about
+# 4800 against 23700 for the sum of |terms|), and the kernel adds 12 x 2048
+# products (split: twice as many) into one float32 accumulator an output,
+# rep inside the K loop. On an H100 80GB HBM3 at 700 W this read 2.1e-5
+# (f32), 3.6e-5 (bf16) and 6.4e-5 (split); a k-mapping fault inside an mma
+# k-step (x's k = 2t read twice, or the a0 and a2 fragments swapped) reads
+# 0.9 and 1.1 (float64 on the CPU, R = 1021). 2e-4 lies 3x above the first
+# and 4500x below the second. Each run also logs the kernel's and the plain
+# version's error against the float64 product.
+TOL_MM_DENSE = 2e-4
+# A chain whose reps the compiler folded would take about its one-rep time:
+# the full chain must take at least this many times as long (the least
+# ratio read was 1.8, mm_chain_kernel bf16, whose one rep is mostly loads).
+MIN_REPS_RATIO = 1.3
+# Hopper's special-function units: 16 exp / reciprocal results per SM and
+# clock (CUDA C++ Programming Guide, arithmetic instruction throughput,
+# compute capability 9.0; the data sheet gives no such peak). The SiLU
+# chains do 2 such operations an element and rep; their bound counts them
+# at this rate times the SMs and the card's top SM clock.
+SFU_PER_SM_CLK = 16
+
 # the card's published peaks (NVIDIA H100 SXM data sheet, dense) for the
 # bound: bf16 products on the tensor cores, fp32 on the CUDA cores, and HBM
 PEAK_FLOPS = {"bf16": 989e12, "fp32": 67e12}
@@ -246,6 +292,9 @@ REPLACES = {
     "churn_step_kernel": f"{_PS}:441 _full_churn_kernel; {_PS}:320 _stage0_churn_a_kernel, "
                          f"{_PS}:94 _mid_stage_kernel, {_PS}:358 _final_churn_a_kernel, "
                          f"{_PS}:210 _stage0_dpmpp_kernel, {_PS}:399 _final_churn_b_kernel",
+    "mm_chain_kernel": "tools/bench_mm.py:35 make_kernel (pallas_call :84)",
+    "silu_chain_kernel": "tools/bench_silu.py:31 make_kernel (pallas_call :60)",
+    "bcast_chain_kernel": "tools/bench_repeat.py:46 make_kernel (pallas_call :94)",
 }
 SOURCES = {
     "fps_kernel": "graspldm_tpu_torch/csrc/fps.cu",
@@ -260,6 +309,9 @@ SOURCES = {
     "ddim_step_kernel": "graspldm_tpu_torch/csrc/step_samplers.cu",
     "dpmpp_step_kernel": "graspldm_tpu_torch/csrc/step_samplers.cu",
     "churn_step_kernel": "graspldm_tpu_torch/csrc/step_samplers.cu",
+    "mm_chain_kernel": "graspldm_tpu_torch/csrc/microbench.cu",
+    "silu_chain_kernel": "graspldm_tpu_torch/csrc/microbench.cu",
+    "bcast_chain_kernel": "graspldm_tpu_torch/csrc/microbench.cu",
 }
 STEP_KERNEL = {"ddim": "ddim_step_kernel", "dpmpp": "dpmpp_step_kernel",
                "churn": "churn_step_kernel"}
@@ -267,14 +319,6 @@ STEP_KERNEL = {"ddim": "ddim_step_kernel", "dpmpp": "dpmpp_step_kernel",
 
 def log(*a) -> None:
     print(*a, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -295,10 +339,12 @@ def counters():
     from graspldm_tpu_torch.models import stacked_cuda as sc
     from graspldm_tpu_torch.ops import cuda_fps
 
+    tools = mb_tools()
     return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL, sc.HYBRID_STAGE_KERNEL,
             sc.HYBRID_FINAL_KERNEL, cs.SAMPLER_KERNEL,
             cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
-            cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL)
+            cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL, tools["mm"].MM_CHAIN_KERNEL,
+            tools["silu"].SILU_CHAIN_KERNEL, tools["repeat"].BCAST_CHAIN_KERNEL)
 
 
 def counts() -> dict:
@@ -1907,6 +1953,230 @@ def pvcnn2_reference_phase(run: Run, enc, dev) -> None:
         run.failures.append("PVCNN2Encoder: TOL_PVCNN2 does not fail TF32 convolutions")
 
 
+# ---------------------------------------------------------------------------
+# the micro-benchmark path
+# ---------------------------------------------------------------------------
+
+MB_KERNEL = {"mm": "mm_chain_kernel", "silu": "silu_chain_kernel",
+             "repeat": "bcast_chain_kernel"}
+
+
+def mb_tools() -> dict:
+    from graspldm_tpu_torch.tools import bench_mm, bench_repeat, bench_silu
+
+    return {"mm": bench_mm, "silu": bench_silu, "repeat": bench_repeat}
+
+
+def mb_operands(tool: str, R: int, dev, seed: int, dense: bool = False) -> dict:
+    """The tool's inputs of ``R`` rows (its ``make_inputs`` of ``seed``, as
+    its ``bench()`` makes them) and, by form: the kernel (``reps`` as the
+    tool's unless given), its plain version, the one PyTorch call that
+    computes one rep (the yardstick), the operations by type and the bytes
+    moved (each input read once, the output written once) for the bound.
+    ``dense`` swaps the tool's one-hot pool for a seeded normal ``pf`` and
+    ``pb = bf16(pf)``: the one-hot pool sums 32 consecutive k rows with one
+    weight, so a wrong k mapping inside an mma k-step would still agree."""
+    m = mb_tools()[tool]
+    reps = m.REPS
+    if tool == "mm":
+        x = m.make_inputs(R, dev, seed)
+        if dense:
+            gen = torch.Generator(device=dev).manual_seed(seed + 1)
+            pf = torch.randn((m.K, m.N), generator=gen, device=dev)
+            pb = pf.to(torch.bfloat16)
+        else:
+            pf, pb = m.make_pool(dev)
+        sq = x.float() * x.float()
+        hi = sq.to(torch.bfloat16)
+        lo = (sq - hi.float()).to(torch.bfloat16)
+        # one rep, one call: float32 (TF32 off), bf16 (cuBLAS, fp32 accumulate),
+        # split as one product [hi | lo] @ [pool; pool]
+        lib = {"f32": (sq, pf), "bf16": (x * x, pb),
+               "split": (torch.cat([hi, lo], 1), torch.cat([pb, pb], 0))}
+        flops = 2.0 * R * m.K * m.N * reps
+        # the chain's function in float64 (the multiplier is bf16(0.999) = 1,
+        # so the reps are equal; hi + lo is the float32 square exactly)
+        x2 = x.double() * x.double()
+        a64 = {"f32": x2, "bf16": (x * x).double(), "split": x2}
+        return dict(
+            kern=lambda f, r=reps: m.mm_chain_apply(x, pf, pb, f, r),
+            plain=lambda f: m.plain_chain(x, pf, pb, f),
+            exact=lambda f: reps * (a64[f] @ (pf if f == "f32" else pb).double()),
+            library=lambda f: torch.matmul(*lib[f]),
+            ops=lambda f: {"fp32": flops} if f == "f32" else {"bf16": flops * (2 if f == "split" else 1)},
+            bytes=lambda f: nbytes(x, pf if f == "f32" else pb) + R * m.N * 4,
+            what=f"{reps}-rep chain of x^2 @ pool, x bf16 [{R}, {m.K}], "
+                 f"{'dense ' if dense else ''}pool [{m.K}, {m.N}]")
+    if tool == "silu":
+        x = m.make_inputs(R, MB_W, dev, seed)
+        # an element and rep: 2 special-function operations (exp and the
+        # reciprocal of the quotient) and 3 float32 ones (1 + e, the product
+        # or the rounding steps, the chain's multiply)
+        return dict(
+            kern=lambda f, r=reps: m.silu_chain_apply(x, f, r),
+            plain=lambda f: m.plain_chain(x, f),
+            library=lambda f: torch.nn.functional.silu(x),
+            ops=lambda f: {"sfu": 2.0 * reps * x.numel(), "fp32": 3.0 * reps * x.numel()},
+            bytes=lambda f: 2 * nbytes(x),
+            what=f"{reps}-rep SiLU chain on x bf16 [{R}, {MB_W}]")
+    (s, v), b = m.make_inputs(R, dev, seed), m.qbcast(dev)
+    # per rep and row: L*hd products, (L-1)*hd sums, 3*L*H for the s update;
+    # matmul adds the one-hot product on the tensor cores
+    elem = 1.0 * reps * R * (m.L * m.HD + (m.L - 1) * m.HD + 3 * m.L * m.H)
+    return dict(
+        kern=lambda f, r=reps: m.bcast_chain_apply(s, v, b, f, r),
+        plain=lambda f: m.plain_chain(s, v, b, f),
+        library=lambda f: torch.einsum("rlh,rlhd->rhd", s.view(R, m.L, m.H),
+                                       v.view(R, m.L, m.H, m.D)),
+        ops=lambda f: {"fp32": elem, **({"bf16": 2.0 * reps * R * m.L * m.H * m.L * m.HD}
+                                        if f == "matmul" else {})},
+        bytes=lambda f: nbytes(s, v, b) + R * m.HD * 2,
+        what=f"{reps}-rep score broadcast, s [{R}, {m.L * m.H}], v [{R}, {m.L * m.HD}] bf16")
+
+
+def mb_bound(ops: dict, nbytes_: int, peaks: dict) -> dict:
+    """The least time: the largest of the bytes' time and each operation
+    type's time at its peak rate (``peaks``, operations a second)."""
+    times = {"bytes": nbytes_ / PEAK_BYTES, **{k: v / peaks[k] for k, v in ops.items()}}
+    by = max(times, key=times.get)
+    return dict(bound_ms=1e3 * times[by], bound_by="bytes" if by == "bytes" else "operations",
+                bound_type=by, flops=sum(ops.values()), bytes=nbytes_)
+
+
+def sfu_rate(dev) -> float:
+    """Special-function results a second: SFU_PER_SM_CLK per SM at the
+    card's top SM clock (nvidia-smi's clocks.max.sm, in MHz)."""
+    from graspldm_tpu_torch.utils.profiling import query_gpu
+
+    mhz = float(query_gpu(dev, "clocks.max.sm").split()[0])
+    return SFU_PER_SM_CLK * torch.cuda.get_device_properties(dev).multi_processor_count * mhz * 1e6
+
+
+def sass_check(run: Run) -> None:
+    """``cuobjdump -sass`` of the built micro-benchmark library: the
+    tensor-core forms (``mm_chain_kernel`` bf16 and split,
+    ``bcast_chain_kernel`` matmul) issue HMMA; ``mm_chain_kernel`` f32
+    issues none (no TF32)."""
+    from graspldm_tpu_torch.cuda_build import library_path, nvcc_path
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
+    out = subprocess.run([cuobjdump, "-sass", str(library_path("microbench.cu"))],
+                         capture_output=True, text=True, check=True, timeout=300).stdout
+    hmma = {}
+    for chunk in out.split("Function : ")[1:]:
+        m = re.search(r"(mm_chain_kernel|silu_chain_kernel|bcast_chain_kernel)ILi(\d)E",
+                      chunk.split("\n", 1)[0])
+        if m:
+            hmma[(m.group(1), int(m.group(2)))] = chunk.count("HMMA")
+    tools = mb_tools()
+    for (name, code), n in sorted(hmma.items()):
+        tool = next(t for t, k in MB_KERNEL.items() if k == name)
+        form = tools[tool].FORMS[code]
+        want = (name, form) in (("mm_chain_kernel", "bf16"), ("mm_chain_kernel", "split"),
+                                ("bcast_chain_kernel", "matmul"))
+        ok = (n > 0) == want
+        log(f"  SASS {name}<{form}>: {n} HMMA instructions ({'tensor cores' if n else 'none'}) "
+            f"-> {'ok' if ok else 'FAIL'}")
+        if not ok:
+            run.failures.append(f"{name} {form}: HMMA count {n} (tensor cores wanted: {want})")
+    if len(hmma) != 9:
+        run.failures.append(f"SASS: found {len(hmma)} of the 9 micro-benchmark kernels")
+
+
+def microbench_kernel_phase(run: Run, dev) -> None:
+    """Each micro-benchmark kernel in each form against its plain version at
+    MB_R and MB_RAGGED rows; at MB_R timed beside its one-rep time, its
+    plain version and the library call (times the reps)."""
+    log("[kernels] micro-benchmark kernels vs their plain versions; SASS of the library")
+    sass_check(run)
+    peaks = {**PEAK_FLOPS, "sfu": sfu_rate(dev)}
+    for tool, mod in mb_tools().items():
+        name = MB_KERNEL[tool]
+        checked = {f: [] for f in mod.FORMS}
+        for R in (MB_R, MB_RAGGED):
+            ops = mb_operands(tool, R, dev, SEED + 61)
+            for form in mod.FORMS:
+                got, ref = ops["kern"](form), ops["plain"](form)
+                torch.cuda.synchronize()
+                label = f"{name} {form} R={R}"
+                if tool == "mm":
+                    err = run.compare(label, got, ref, TOL_MM)
+                    # the product as a dense one, on a pool that tells every k apart
+                    dense = mb_operands(tool, R, dev, SEED + 67, dense=True)
+                    got_d, ref_d = dense["kern"](form), dense["plain"](form)
+                    checked[form].append(dict(R=R, pool="dense", max_abs_err=run.compare(
+                        f"{label} dense pool", got_d, ref_d, TOL_MM_DENSE)))
+                    exact = dense["exact"](form)
+                    top = exact.abs().max().item()
+                    log(f"    against the float64 product: kernel "
+                        f"{(got_d.double() - exact).abs().max().item() / top:.3e}, plain "
+                        f"{(ref_d.double() - exact).abs().max().item() / top:.3e} of max|ref|")
+                else:
+                    diff = (got.float() - ref.float()).abs()
+                    err, n = diff.max().item(), int((diff > 0).sum())
+                    ok = torch.equal(got, ref)
+                    log(f"  {label}: {'bitwise equal' if ok else f'{n} entries DIFFER'} "
+                        f"(max_abs_err {err:.3e}, max|ref| {ref.float().abs().max().item():.3e})")
+                    if not ok:
+                        run.failures.append(f"{label}: kernel disagrees with its plain version")
+                checked[form].append(dict(R=R, max_abs_err=err))
+                if R != MB_R:
+                    continue
+                k_ms = cuda_ms(lambda: ops["kern"](form), 20)
+                r1_ms = cuda_ms(lambda: ops["kern"](form, 1), 20)
+                p_ms = cuda_ms(lambda: ops["plain"](form), 3)
+                l_ms = cuda_ms(lambda: ops["library"](form), 20) * mod.REPS
+                b = mb_bound(ops["ops"](form), ops["bytes"](form), peaks)
+                tag = "fp32" if form == "f32" and tool == "mm" else "bf16"
+                run.record(name, form, None, R, mod.REPS, tag, what=ops["what"], ms=k_ms,
+                           plain_ms=p_ms, library_ms=l_ms, reps1_ms=r1_ms, **b)
+                folded = k_ms < MIN_REPS_RATIO * r1_ms
+                log(f"  {name} {form}: kernel {k_ms:.4f} ms ({mod.REPS} reps; 1 rep {r1_ms:.4f} "
+                    f"ms), plain {p_ms:.4f} ms, library {l_ms:.4f} ms ({mod.REPS} calls), bound "
+                    f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bound_type']}"
+                    + (", the SFU floor" if b["bound_type"] == "sfu" else "") + ")"
+                    + (f" -> FAIL: under {MIN_REPS_RATIO}x the one-rep time" if folded else ""))
+                if folded:
+                    run.failures.append(f"{name} {form}: {mod.REPS} reps take {k_ms:.4f} ms "
+                                        f"against {r1_ms:.4f} for one")
+        for form in mod.FORMS:
+            r = run.records[(name, form)]["fp32" if tool == "mm" and form == "f32" else "bf16"]
+            r["err"] = max(c["max_abs_err"] for c in checked[form])
+            r["err_checked_at"] = checked[form]
+
+
+def microbench_phase(run: Run, dev) -> None:
+    """The micro-benchmark main path: each tool's timing function (the one
+    its ``main()`` calls) at the tools' defaults on the card, its lines as
+    ``main()`` prints them; each form's launches (its result, one warm-up,
+    MB_ITERS timed) booked to that form, its output held against its plain
+    version on the same inputs and the forms against each other as the
+    tools expect (split error-free, the broadcasts bitwise)."""
+    from graspldm_tpu_torch.utils.profiling import device_line
+
+    log(f"[microbench] {device_line(dev)}")
+    for tool, mod in mb_tools().items():
+        ops = mb_operands(tool, MB_R, dev, SEED)
+        size = f"{MB_R} {MB_W}" if tool == "silu" else f"{MB_R}"
+        log(f"[microbench] python -m {mod.__name__} {size} --iters {MB_ITERS}")
+        args = (MB_R, MB_W) if tool == "silu" else (MB_R,)
+        for r in mod.bench(*args, dev, MB_ITERS, seed=SEED):
+            log("  " + mod.line(r))
+            out, form = r["out"], r["form"]
+            if out.shape[0] != MB_R or not bool(torch.isfinite(out.float()).all()):
+                raise AssertionError(f"{tool} {form}: output {tuple(out.shape)} not finite")
+            run.expect_more(f"microbench {tool}", form, **{MB_KERNEL[tool]: MB_ITERS + 2})
+            ref = ops["plain"](form)
+            same = torch.equal(out, ref) if tool != "mm" else \
+                (out - ref).abs().max().item() <= TOL_MM * ref.abs().max().item()
+            wanted = {"split": 1e-4, "repeat": 0.0, "narrow": 0.0}.get(form)
+            agree = wanted is None or r["err"] <= wanted
+            log(f"  {form}: output vs its plain version {'ok' if same else 'FAIL'}; vs the first "
+                f"form {r['err']:.2e}" + ("" if wanted is None else
+                                          f" (limit {wanted:.0e}: {'ok' if agree else 'FAIL'})"))
+            if not (same and agree):
+                run.failures.append(f"microbench {tool} {form}: output wrong")
+
 
 def launches_of(run: Run, name: str, config: str) -> dict:
     """Launches of kernel ``name`` by the calls of ``config``, per main path."""
@@ -1924,7 +2194,7 @@ def kernels_line(run: Run) -> dict:
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": sum(by_path.values()), "max_abs_err": bf.get("err"),
             "ms": bf.get("ms"), "plain_ms": bf.get("plain_ms"), "bound_ms": bf.get("bound_ms"),
-            "bound_by": bf.get("bound_by"), "library_ms": None,
+            "bound_by": bf.get("bound_by"), "library_ms": bf.get("library_ms"),
             "dtype": "bfloat16" if "bf16" in r else "float32", "config": config, "what": r["what"], "L": r["L"],
             "BG": r["BG"], "steps": r["steps"], "launches_by_path": by_path,
             "err_checked_at": bf.get("err_checked_at", [
@@ -1934,7 +2204,7 @@ def kernels_line(run: Run) -> dict:
             "bound_by_fp32": fp.get("bound_by"),
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
                for k in ("chain_ms", "timed_at", "unsplit_chain_ms", "attention_ms",
-                         "chain_vs_unsplit") if k in t},
+                         "chain_vs_unsplit", "reps1_ms") if k in t},
             **({"err_checked_at_fp32": fp["err_checked_at"]}
                if "err_checked_at" in fp and "bf16" in r else {}),
             "launches_per_call": run.per_call.get((name, config), {}),
@@ -1953,7 +2223,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    card = card_line()
+    from graspldm_tpu_torch.utils.profiling import device_line
+
+    card = device_line(dev)
     log(card)
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
 
@@ -1985,6 +2257,7 @@ def main() -> int:
                ("ppc", "ppc", ppc_edm[1])], dev)
     run.phase("hybrid kernels", hybrid_kernel_phase, ddim_models[0], region_ppc[1], ppc_edm[1],
               dev)
+    run.phase("microbench kernels", microbench_kernel_phase, dev)
 
     run.reset_counts("ddim")
     run.phase("generation ddim", generation_phase, ddim_models, ppc_ddim, dev)
@@ -2017,6 +2290,10 @@ def main() -> int:
     run.reset_counts("pvcnn2")
     run.phase("pvcnn2 encoder", pvcnn2_phase, encoder, dev)
     log(f"[main path pvcnn2] launches: {counts()}")
+
+    run.reset_counts("microbench")
+    run.phase("microbench", microbench_phase, dev)
+    log(f"[main path microbench] launches: {counts()}")
     for name, config in run.records:
         n = launches_of(run, name, config)
         log(f"  {name} at {config}: {n}")

@@ -8,8 +8,8 @@ against (``tests/test_torch_port_*.py``).
 
 Plain tensor code is PyTorch; each TPU kernel on a ported path is
 hand-written CUDA C++ for ``sm_90a`` (``csrc/``: the network-stage,
-whole-network, sampler and per-step sampler kernels, and furthest point
-sampling), built with ``nvcc`` at first use
+whole-network, sampler and per-step sampler kernels, furthest point
+sampling, and the micro-benchmark kernels of :mod:`.tools`), built with ``nvcc`` at first use
 (:mod:`graspldm_tpu_torch.cuda_build`). Each kernel wrapper runs
 its plain PyTorch version for CPU tensors and launches the kernel (or raises)
 for CUDA tensors.

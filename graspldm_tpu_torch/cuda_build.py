@@ -25,7 +25,7 @@ import tempfile
 import types
 from pathlib import Path
 
-__all__ = ["load_library", "nvcc_path", "BUILD_DIR", "KernelCounter", "on_cuda",
+__all__ = ["load_library", "library_path", "nvcc_path", "BUILD_DIR", "KernelCounter", "on_cuda",
            "check_launch"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
@@ -75,6 +75,14 @@ _SOURCES = {
         # coords, out, B, N, M, stream
         "gl_fps": [_P, _P, _I, _I, _I, _P],
         "gl_fps_max_points": [],
+    },
+    "microbench.cu": {
+        # form, x, pf, pb, out, R, K, reps, mult_bits, stream
+        "gl_mm_chain": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # form, x, out, n, reps, mult_bits, stream
+        "gl_silu_chain": [_I, _P, _P, ctypes.c_longlong, _I, _I, _P],
+        # form, s, v, onehot, out, R, reps, half_bits, zero_bits, stream
+        "gl_bcast_chain": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     },
     "step_samplers.cu": {
         # dtype, x, embin, trow, coef, noise, w, net, out, BG, L, E, Ce, G, cmax, clip,
@@ -137,7 +145,8 @@ def _digest(source: str) -> str:
     return h.hexdigest()[:16]
 
 
-def _lib_path(source: str) -> Path:
+def library_path(source: str) -> Path:
+    """Where the library built from ``source`` lives (named by its digest)."""
     return BUILD_DIR / f"lib{Path(source).stem}_{_digest(source)}.so"
 
 
@@ -146,7 +155,7 @@ def load_library() -> types.SimpleNamespace:
     """Compile (if needed) and load every kernel library; raises on failure.
 
     Returns a namespace of the C entries of all of them (``gl_*``)."""
-    todo = [src for src in _SOURCES if not _lib_path(src).exists()]
+    todo = [src for src in _SOURCES if not library_path(src).exists()]
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
@@ -165,13 +174,13 @@ def load_library() -> types.SimpleNamespace:
                 os.unlink(tmp)
                 errors.append(f"nvcc failed on {src} ({proc.returncode}):\n{err[-4000:]}")
             else:
-                os.replace(tmp, _lib_path(src))
+                os.replace(tmp, library_path(src))
         (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
         if errors:
             raise RuntimeError("\n".join(errors))
     fns = {}
     for src, entries in _SOURCES.items():
-        lib = ctypes.CDLL(str(_lib_path(src)))
+        lib = ctypes.CDLL(str(library_path(src)))
         for name, argtypes in entries.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

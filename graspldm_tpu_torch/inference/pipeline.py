@@ -206,7 +206,10 @@ def pack_generation_weights(vae, ddm=None, device=None, denoiser_impl: str = "au
     """Pack what the kernel route uses: the decoder (and denoiser) at their
     declared compute dtypes (a class- or region-conditioned denoiser
     declares none: float32); a part on the plain-module route
-    (:func:`resolve_denoiser_impl`, :func:`resolve_decoder_impl`) is None."""
+    (:func:`resolve_denoiser_impl`, :func:`resolve_decoder_impl`) is None.
+    No ``device`` named: the device of ``vae``'s parameters."""
+    if device is None:
+        device = next(vae.parameters()).device
     dec = None
     if resolve_decoder_impl(vae, decoder_impl) == "kernels":
         dec = pack_decoder_weights(

@@ -38,7 +38,7 @@ def decoder_dims_for(vae) -> DenoiserDims:
 @torch.no_grad()
 def pack_decoder_weights(vae, dims: DenoiserDims, dtype=torch.float32, device=None) -> PackedNet:
     """GraspCVAE -> kernel operands of the decoder core, plus the float32
-    in-layer and heads in ``aux``."""
+    in-layer and heads in ``aux``; no ``device`` named: the decoder's."""
     dec = vae.decoder
     w = PackedNet(pack_math_weights(dec.net, dims), dims, dtype, device)
     heads = {

@@ -111,7 +111,8 @@ class PackedNet:
     kernels read (a header, then one record per stage and one for the
     final block). ``aux`` holds the float32 embedding (and head) weights
     that run in plain PyTorch around the kernels, a conditioned denoiser's
-    class / region embedding weights included.
+    class / region embedding weights included. ``device=None`` packs on
+    the device of ``math_w``'s tensors.
     """
 
     def __init__(self, math_w: Dict[str, torch.Tensor], dims: DenoiserDims,
@@ -119,7 +120,8 @@ class PackedNet:
         if dtype not in DTYPE_CODE:
             raise ValueError(f"kernel dtype must be float32 or bfloat16, got {dtype}")
         self.dims, self.dtype = dims, dtype
-        device = torch.device(device or "cpu")
+        # no device named: the device of the weights themselves
+        device = torch.device(device) if device is not None else next(iter(math_w.values())).device
         self.aux = {k: v.to(device) for k, v in math_w.items() if k in AUX_KEYS}
         chunks: List[torch.Tensor] = []
         offsets: Dict[str, int] = {}

@@ -410,3 +410,23 @@ def test_pvcnn_encoder_global_attention_matches_jax():
         got = tm.eval()(_t(xyz))
     assert got.shape == (2, 3, 12)
     _close(got, want)
+
+
+@pytest.mark.parametrize("device", ["cpu", "meta"])
+def test_packing_follows_the_models_device(device):
+    """``pack_generation_weights`` / ``pack_decoder_weights`` / ``PackedNet``
+    with no device named pack on the device of the models' parameters
+    (the meta device stands in for a card here: packing it onto the CPU
+    would raise)."""
+    from graspldm_tpu_torch.models.fast_decoder import decoder_dims_for, pack_decoder_weights
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet
+    from graspldm_tpu_torch.models.stacked_denoiser import pack_math_weights
+
+    vae, ddm, _ = build_flagship(FlagshipConfig(**CFG), device="cpu")
+    vae, ddm = vae.to(device), ddm.to(device)
+    w = pl.pack_generation_weights(vae, ddm)
+    dims = decoder_dims_for(vae)
+    parts = (w.decoder, w.denoiser, pack_decoder_weights(vae, dims),
+             PackedNet(pack_math_weights(vae.decoder.net, dims), dims))
+    for part in parts:
+        assert {t.device.type for t in (part.flat, part.layout, *part.aux.values())} == {device}

@@ -31,6 +31,7 @@ from graspldm_tpu_torch.models.stacked_denoiser import (
     pack_math_weights,
 )
 from graspldm_tpu_torch.ops import cuda_fps
+from graspldm_tpu_torch.tools import bench_mm, bench_repeat, bench_silu
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -40,7 +41,9 @@ def _counts():
                                       sc.HYBRID_STAGE_KERNEL, sc.HYBRID_FINAL_KERNEL,
                                       cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL, cs.CHURN_KERNEL,
                                       cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
-                                      cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL))
+                                      cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL,
+                                      bench_mm.MM_CHAIN_KERNEL, bench_silu.SILU_CHAIN_KERNEL,
+                                      bench_repeat.BCAST_CHAIN_KERNEL))
 
 
 @pytest.fixture(scope="module")
@@ -68,27 +71,33 @@ def test_port_never_imports_jax():
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.')]\n"
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'graspldm_tpu'))\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'graspldm_tpu', 'tools'))\n"
         "assert not bad, bad\n"
         "assert len(mods) >= 22, mods\n"
         "for need in ('models.conditioning', 'diffusion.guidance', 'models.pvcnn2',\n"
         "             'ops.cuda_fps', 'ops.neighborhood', 'ops.sampling',\n"
         "             'models.stacked_cuda', 'models.stacked_denoiser', 'models.layers',\n"
-        "             'models.pvcnn', 'diffusion.schedules', 'inference.pipeline'):\n"
+        "             'models.pvcnn', 'diffusion.schedules', 'inference.pipeline',\n"
+        "             'tools.bench_mm', 'tools.bench_silu', 'tools.bench_repeat',\n"
+        "             'utils.profiling'):\n"
         "    assert p.__name__ + '.' + need in mods, need\n"
         "from graspldm_tpu_torch.models.stacked_cuda import hybrid_stage_apply\n"
         "from graspldm_tpu_torch.models.stacked_denoiser import attention_stacked\n"
         "from graspldm_tpu_torch.models.pvcnn import GlobalAttention, VoxelAttention\n"
         "from graspldm_tpu_torch.models.layers import Attention1D\n"
         "from graspldm_tpu_torch.inference.pipeline import resolve_denoiser_impl\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'graspldm_tpu'))\n"
+        "from graspldm_tpu_torch.tools.bench_mm import mm_chain_apply\n"
+        "from graspldm_tpu_torch.utils.profiling import timeit\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'flax', 'graspldm_tpu', 'tools'))\n"
         "assert not bad, bad\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     src = (REPO / "chip_smoke.py").read_text()
-    assert not re.search(r"^\s*(from|import)\s+(jax|flax|graspldm_tpu)\b", src, re.M)
+    assert not re.search(r"^\s*(from|import)\s+(jax|flax|graspldm_tpu|tools)\b", src, re.M)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card():
@@ -636,3 +645,82 @@ def test_fps_kernel_matches_plain_version_on_card(cuda, case):
 def test_fps_kernel_refuses_a_cloud_larger_than_a_block(cuda):
     with pytest.raises(ValueError, match="8192"):
         cuda_fps.fps_apply(torch.zeros(1, 8193, 3, device=cuda), 4)
+
+
+@pytest.mark.cuda
+def test_packing_follows_the_models_device_on_card(cuda):
+    """Models on the card pack on the card with no device named, and
+    ``ldm_generate`` takes those weights."""
+    from graspldm_tpu_torch.flagship import FlagshipConfig, build_flagship
+    from graspldm_tpu_torch.inference import ldm_generate, pack_generation_weights
+
+    cfg = FlagshipConfig(pc_num_points=64, pc_scale_channels=0.125,
+                         pc_scale_voxel_resolution=0.25, block_channels=(16, 32))
+    vae, ddm, diff = build_flagship(cfg, generator=torch.Generator().manual_seed(0), device=cuda)
+    w = pack_generation_weights(vae, ddm)
+    for part in (w.decoder, w.denoiser):
+        assert part is not None
+        assert {t.device.type for t in (part.flat, part.layout, *part.aux.values())} == {"cuda"}
+    pc = torch.randn(2, 64, 3, generator=torch.Generator().manual_seed(1)).to(cuda)
+    out = ldm_generate(vae, ddm, diff, pc, 8, torch.Generator(device=cuda).manual_seed(2),
+                       num_inference_steps=4, weights=w)
+    assert out["grasps"].device.type == "cuda" and bool(torch.isfinite(out["grasps"]).all())
+
+
+# The micro-benchmark kernels against their plain versions on the card, at a
+# ragged R and the tools' widths. mm_chain_kernel: float32 within 1e-5 of
+# max|ref| (the same exact products, summed in another order: rep by rep in
+# the plain version, reps inside the K loop in the kernel). The bf16 chains:
+# bitwise, every op being one rounding of the same float32 result in both.
+MICROBENCH = [("mm", f) for f in bench_mm.FORMS] + [("silu", f) for f in bench_silu.FORMS] \
+    + [("repeat", f) for f in bench_repeat.FORMS]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tool,form", MICROBENCH)
+def test_microbench_kernels_match_plain_on_card(cuda, tool, form):
+    R = 1021
+    if tool == "mm":
+        x, (pf, pb) = bench_mm.make_inputs(R, cuda, 3), bench_mm.make_pool(cuda)
+        kern = lambda: bench_mm.mm_chain_apply(x, pf, pb, form)  # noqa: E731
+        plain = bench_mm.plain_chain(x, pf, pb, form)
+        counter = bench_mm.MM_CHAIN_KERNEL
+    elif tool == "silu":
+        x = bench_silu.make_inputs(R, 2048, cuda, 3)
+        kern = lambda: bench_silu.silu_chain_apply(x, form)  # noqa: E731
+        plain, counter = bench_silu.plain_chain(x, form), bench_silu.SILU_CHAIN_KERNEL
+    else:
+        (s, v), b = bench_repeat.make_inputs(R, cuda, 3), bench_repeat.qbcast(cuda)
+        kern = lambda: bench_repeat.bcast_chain_apply(s, v, b, form)  # noqa: E731
+        plain = bench_repeat.plain_chain(s, v, b, form)
+        counter = bench_repeat.BCAST_CHAIN_KERNEL
+    before = counter.launches
+    got = kern()
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert got.shape == plain.shape and got.dtype == plain.dtype
+    if tool == "mm":
+        torch.testing.assert_close(got, plain, rtol=0,
+                                   atol=1e-5 * plain.abs().max().item())
+    else:
+        assert torch.equal(got, plain)
+
+
+# mm_chain_kernel as a dense product: the tool's one-hot pool weighs 32
+# consecutive k rows alike, so a wrong k mapping inside an mma k-step would
+# still agree with it; a seeded normal pool (pb = bf16(pf)) tells every k
+# apart. Within 2e-4 of max|ref| (chip_smoke.TOL_MM_DENSE, where the reason
+# is written): the sums cancel and the kernel adds every rep's products into
+# one float32 accumulator an output (read: up to 6.4e-5); a k-mapping fault
+# reads about 1.
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [8192, 1021])
+@pytest.mark.parametrize("form", bench_mm.FORMS)
+def test_mm_chain_kernel_dense_pool_on_card(cuda, R, form):
+    x = bench_mm.make_inputs(R, cuda, 4)
+    pf = torch.randn((bench_mm.K, bench_mm.N), generator=torch.Generator(device=cuda)
+                     .manual_seed(5), device=cuda)
+    pb = pf.to(torch.bfloat16)
+    got = bench_mm.mm_chain_apply(x, pf, pb, form)
+    plain = bench_mm.plain_chain(x, pf, pb, form)
+    torch.testing.assert_close(got, plain, rtol=0, atol=2e-4 * plain.abs().max().item())
