@@ -19,6 +19,9 @@ any phase fails (every phase runs; the failures are listed at the end):
    L = 16 (checked at BG = 1021 over 8 steps, then checked and timed at
    BG = 1024 with their full step counts); the EDM kernels' bf16 rounding
    points are also held over 2 steps at both, against bf16's own spread.
+   Then the control: ``ddim_sampler_kernel``'s bf16 ms a step (its
+   products on the tensor cores) beside ``dpmpp_sampler_kernel``'s (the
+   same network on the CUDA cores), at fpc and ppc.
    The per-step kernels of the trajectory path (``ddim_step_kernel``,
    ``dpmpp_step_kernel``, ``churn_step_kernel``) are held the same way:
    over their first few chained steps against their plain steps at fpc
@@ -100,8 +103,11 @@ any phase fails (every phase runs; the failures are listed at the end):
    ``bcast_chain_kernel`` in each of their three forms against their
    plain versions at the tools' default R = 8192 (SiLU width 2048) and a
    ragged R = 1021, each timed beside its plain version, its one-rep time
-   and one PyTorch library call (times the reps), and the SASS of the
-   built library read for tensor-core (HMMA) instructions; then the main
+   and one PyTorch library call (times the reps), after the SASS of every
+   built library is read for tensor-core (HMMA) instructions: the three
+   forms of ``mm_chain_kernel``, ``bcast_chain_kernel`` matmul and the bf16
+   ``ddim_sampler_kernel`` issue them, every other kernel none, and no
+   kernel a TF32 one; then the main
    path: each tool's timing function (the one its ``main()`` calls) at
    its defaults, its lines printed as ``main()`` prints them, every form's
    output held against its plain version.
@@ -241,21 +247,23 @@ MB_R, MB_RAGGED, MB_W, MB_ITERS = 8192, 1021, 2048, 10
 # mm_chain_kernel against its plain version, relative to max|ref|: the same
 # exact products summed in float32 in another order (the reps inside the K
 # loop in the kernel, rep by rep in the plain version). On an H100 80GB
-# HBM3 at 700 W this read 2.5e-6 (f32), 9.9e-7 (bf16) and 1.6e-6 (split).
+# HBM3 at 700 W this read up to 7.8e-7 (f32), 4.2e-7 (bf16) and 7.1e-7
+# (split), every form on the tensor cores.
 # The bf16 chains (silu_chain_kernel, bcast_chain_kernel) are held bitwise:
 # every op is one rounding of the same float32 value in the kernel and in
 # the plain version (measured: no entry differs, at R = 8192 and 1021).
 TOL_MM = 1e-5
 # mm_chain_kernel on a dense normal pool (pb = bf16(pf)), relative to
 # max|ref|: the terms have both signs, so the sums cancel (max|ref| about
-# 4800 against 23700 for the sum of |terms|), and the kernel adds 12 x 2048
-# products (split: twice as many) into one float32 accumulator an output,
-# rep inside the K loop. On an H100 80GB HBM3 at 700 W this read 2.1e-5
-# (f32), 3.6e-5 (bf16) and 6.4e-5 (split); a k-mapping fault inside an mma
-# k-step (x's k = 2t read twice, or the a0 and a2 fragments swapped) reads
-# 0.9 and 1.1 (float64 on the CPU, R = 1021). 2e-4 lies 3x above the first
-# and 4500x below the second. Each run also logs the kernel's and the plain
-# version's error against the float64 product.
+# 4800 against 23700 for the sum of |terms|), and the kernel adds 12 x 1024
+# products (split: twice as many, f32: five times) into one float32
+# accumulator an output and K half, rep inside the K loop. On an H100 80GB
+# HBM3 at 700 W this read up to 5.3e-5 (f32), 1.9e-5 (bf16) and 3.4e-5
+# (split); a k-mapping fault inside an mma k-step (x's k = 2t read twice,
+# or the a0 and a2 fragments swapped) reads 0.9 and 1.1 (float64 on the
+# CPU, R = 1021). 2e-4 lies 4x above the first and 4500x below the second.
+# Each run also logs the kernel's and the plain version's (cuBLAS float32
+# products) error against the float64 product.
 TOL_MM_DENSE = 2e-4
 # A chain whose reps the compiler folded would take about its one-rep time:
 # the full chain must take at least this many times as long (the least
@@ -489,7 +497,7 @@ def sampler_bound(w, evals: int, BG_: int, tag: str, *operands) -> dict:
     (and the weights, and the [BG_, L] fp32 output) moved once."""
     out = BG_ * w.dims.seq_len * 4
     return bound(2.0 * net_macs(w.dims) * evals * BG_,
-                 nbytes(w.flat, w.layout, *operands) + out, tag)
+                 nbytes(w.math_flat, w.layout, *operands) + out, tag)
 
 
 # ---------------------------------------------------------------------------
@@ -599,6 +607,23 @@ def kernel_phase(run: Run, vae, ddm, diffusion, dev) -> None:
             else:
                 r = run.records[("ddim_sampler_kernel", "fpc")][tag]
                 r["err"] = max(r["err"], err)
+
+
+def control_phase(run: Run) -> None:
+    """bf16 ``ddim_sampler_kernel`` (tensor cores) beside
+    ``dpmpp_sampler_kernel`` (the same network on the CUDA cores), ms a
+    step, at fpc and ppc, from the kernel phases' timings of this run."""
+    steps = {("ddim_sampler_kernel", "fpc"): STEPS, ("ddim_sampler_kernel", "ppc"): PPC_STEPS["ddim"],
+             ("dpmpp_sampler_kernel", "fpc"): EDM_STEPS["dpmpp"],
+             ("dpmpp_sampler_kernel", "ppc"): PPC_STEPS["dpmpp"]}
+    for config in ("fpc", "ppc"):
+        ddim, dpmpp = (run.records[(k, config)]["bf16"] for k in
+                       ("ddim_sampler_kernel", "dpmpp_sampler_kernel"))
+        a = ddim["ms"] / steps[("ddim_sampler_kernel", config)]
+        b = dpmpp["ms"] / steps[("dpmpp_sampler_kernel", config)]
+        ddim["vs_dpmpp_per_step"] = a / b
+        log(f"[control] {config} bf16: ddim_sampler_kernel {a:.4f} ms a step (tensor cores), "
+            f"dpmpp_sampler_kernel {b:.4f} ms a step (CUDA cores): {a / b:.3f} of it")
 
 
 def sampler_runs(w, ed, input_emb, x_unit, noise, steps: dict, sched=None):
@@ -934,7 +959,7 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
                 k_ms = cuda_ms(lambda: full_apply(w, x, emb), 10)
                 p_ms = cuda_ms(lambda: full_plain(w, x, emb), 3)
                 c_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
-                b = bound(2.0 * full_macs(dims) * bg, nbytes(x, emb, ref, w.flat, w.layout), tag)
+                b = bound(2.0 * full_macs(dims) * bg, nbytes(x, emb, ref, w.math_flat, w.layout), tag)
                 log(f"  full_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, chain of 5 "
                     f"launches {c_ms:.3f} ms; bound {b['bound_ms']:.4f} ms")
                 timed = dict(BG=bg, ms=k_ms, plain_ms=p_ms, chain_ms=c_ms, **b)
@@ -1971,8 +1996,9 @@ def mb_operands(tool: str, R: int, dev, seed: int, dense: bool = False) -> dict:
     """The tool's inputs of ``R`` rows (its ``make_inputs`` of ``seed``, as
     its ``bench()`` makes them) and, by form: the kernel (``reps`` as the
     tool's unless given), its plain version, the one PyTorch call that
-    computes one rep (the yardstick), the operations by type and the bytes
-    moved (each input read once, the output written once) for the bound.
+    computes one rep (the yardstick), the operations by type (a list: each
+    entry one way the card can compute the function) and the bytes moved
+    (each input read once, the output written once) for the bound.
     ``dense`` swaps the tool's one-hot pool for a seeded normal ``pf`` and
     ``pb = bf16(pf)``: the one-hot pool sums 32 consecutive k rows with one
     weight, so a wrong k mapping inside an mma k-step would still agree."""
@@ -2003,7 +2029,10 @@ def mb_operands(tool: str, R: int, dev, seed: int, dense: bool = False) -> dict:
             plain=lambda f: m.plain_chain(x, pf, pb, f),
             exact=lambda f: reps * (a64[f] @ (pf if f == "f32" else pb).double()),
             library=lambda f: torch.matmul(*lib[f]),
-            ops=lambda f: {"fp32": flops} if f == "f32" else {"bf16": flops * (2 if f == "split" else 1)},
+            # f32: either once on the CUDA cores or as the five exact bf16
+            # products the kernel runs; the bound is the faster way
+            ops=lambda f: [{"fp32": flops}, {"bf16": 5 * flops}] if f == "f32" else
+            [{"bf16": flops * (2 if f == "split" else 1)}],
             bytes=lambda f: nbytes(x, pf if f == "f32" else pb) + R * m.N * 4,
             what=f"{reps}-rep chain of x^2 @ pool, x bf16 [{R}, {m.K}], "
                  f"{'dense ' if dense else ''}pool [{m.K}, {m.N}]")
@@ -2016,7 +2045,7 @@ def mb_operands(tool: str, R: int, dev, seed: int, dense: bool = False) -> dict:
             kern=lambda f, r=reps: m.silu_chain_apply(x, f, r),
             plain=lambda f: m.plain_chain(x, f),
             library=lambda f: torch.nn.functional.silu(x),
-            ops=lambda f: {"sfu": 2.0 * reps * x.numel(), "fp32": 3.0 * reps * x.numel()},
+            ops=lambda f: [{"sfu": 2.0 * reps * x.numel(), "fp32": 3.0 * reps * x.numel()}],
             bytes=lambda f: 2 * nbytes(x),
             what=f"{reps}-rep SiLU chain on x bf16 [{R}, {MB_W}]")
     (s, v), b = m.make_inputs(R, dev, seed), m.qbcast(dev)
@@ -2028,18 +2057,25 @@ def mb_operands(tool: str, R: int, dev, seed: int, dense: bool = False) -> dict:
         plain=lambda f: m.plain_chain(s, v, b, f),
         library=lambda f: torch.einsum("rlh,rlhd->rhd", s.view(R, m.L, m.H),
                                        v.view(R, m.L, m.H, m.D)),
-        ops=lambda f: {"fp32": elem, **({"bf16": 2.0 * reps * R * m.L * m.H * m.L * m.HD}
-                                        if f == "matmul" else {})},
+        ops=lambda f: [{"fp32": elem, **({"bf16": 2.0 * reps * R * m.L * m.H * m.L * m.HD}
+                                         if f == "matmul" else {})}],
         bytes=lambda f: nbytes(s, v, b) + R * m.HD * 2,
         what=f"{reps}-rep score broadcast, s [{R}, {m.L * m.H}], v [{R}, {m.L * m.HD}] bf16")
 
 
-def mb_bound(ops: dict, nbytes_: int, peaks: dict) -> dict:
-    """The least time: the largest of the bytes' time and each operation
-    type's time at its peak rate (``peaks``, operations a second)."""
-    times = {"bytes": nbytes_ / PEAK_BYTES, **{k: v / peaks[k] for k, v in ops.items()}}
-    by = max(times, key=times.get)
-    return dict(bound_ms=1e3 * times[by], bound_by="bytes" if by == "bytes" else "operations",
+def mb_bound(ways: list, nbytes_: int, peaks: dict) -> dict:
+    """The least time: over the ways the card can compute the function
+    (each a dict of operations by type), the least of the largest of the
+    bytes' time and each operation type's time at its peak rate
+    (``peaks``, operations a second)."""
+    best = None
+    for ops in ways:
+        times = {"bytes": nbytes_ / PEAK_BYTES, **{k: v / peaks[k] for k, v in ops.items()}}
+        by = max(times, key=times.get)
+        if best is None or times[by] < best[0]:
+            best = (times[by], by, ops)
+    t, by, ops = best
+    return dict(bound_ms=1e3 * t, bound_by="bytes" if by == "bytes" else "operations",
                 bound_type=by, flops=sum(ops.values()), bytes=nbytes_)
 
 
@@ -2052,42 +2088,60 @@ def sfu_rate(dev) -> float:
     return SFU_PER_SM_CLK * torch.cuda.get_device_properties(dev).multi_processor_count * mhz * 1e6
 
 
+# the kernels (and template instances) that are meant to run on the tensor
+# cores; every other kernel must issue no HMMA, and none a TF32 one
+TENSOR_CORE_KERNELS = {("mm_chain_kernel", "f32"), ("mm_chain_kernel", "bf16"),
+                       ("mm_chain_kernel", "split"), ("bcast_chain_kernel", "matmul"),
+                       ("ddim_sampler_kernel", "bf16")}
+
+
 def sass_check(run: Run) -> None:
-    """``cuobjdump -sass`` of the built micro-benchmark library: the
-    tensor-core forms (``mm_chain_kernel`` bf16 and split,
-    ``bcast_chain_kernel`` matmul) issue HMMA; ``mm_chain_kernel`` f32
-    issues none (no TF32)."""
+    """``cuobjdump -sass`` of every built library: the kernels of
+    TENSOR_CORE_KERNELS issue HMMA, every other kernel (the float32
+    ``ddim_sampler_kernel`` among them) none, and no kernel a TF32 HMMA.
+    Instances are named by their template argument (a micro-benchmark
+    kernel's form, or bf16 / fp32)."""
     from graspldm_tpu_torch.cuda_build import library_path, nvcc_path
 
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
-    out = subprocess.run([cuobjdump, "-sass", str(library_path("microbench.cu"))],
-                         capture_output=True, text=True, check=True, timeout=300).stdout
-    hmma = {}
-    for chunk in out.split("Function : ")[1:]:
-        m = re.search(r"(mm_chain_kernel|silu_chain_kernel|bcast_chain_kernel)ILi(\d)E",
-                      chunk.split("\n", 1)[0])
-        if m:
-            hmma[(m.group(1), int(m.group(2)))] = chunk.count("HMMA")
+    names = "|".join(sorted(REPLACES, key=len, reverse=True))
     tools = mb_tools()
-    for (name, code), n in sorted(hmma.items()):
-        tool = next(t for t, k in MB_KERNEL.items() if k == name)
-        form = tools[tool].FORMS[code]
-        want = (name, form) in (("mm_chain_kernel", "bf16"), ("mm_chain_kernel", "split"),
-                                ("bcast_chain_kernel", "matmul"))
-        ok = (n > 0) == want
-        log(f"  SASS {name}<{form}>: {n} HMMA instructions ({'tensor cores' if n else 'none'}) "
-            f"-> {'ok' if ok else 'FAIL'}")
+    forms = {MB_KERNEL[t]: m.FORMS for t, m in tools.items()}
+    found = {}
+    for src in sorted({os.path.basename(v) for v in SOURCES.values()}):
+        out = subprocess.run([cuobjdump, "-sass", str(library_path(src))], capture_output=True,
+                             text=True, check=True, timeout=300).stdout
+        for chunk in out.split("Function : ")[1:]:
+            m = re.search(rf"({names})(?:I(?:Li(\d+)E|(13__nv_bfloat16)E|(f)E))?",
+                          chunk.split("\n", 1)[0])
+            if not m:
+                continue
+            name, arg = m.group(1), m.group(2)
+            if arg is not None:
+                inst = forms[name][int(arg)] if name in forms else arg
+            else:
+                inst = "bf16" if m.group(3) else "fp32" if m.group(4) else ""
+            lines = [ln for ln in chunk.splitlines() if "HMMA" in ln]
+            found[(name, inst)] = (len(lines), sum("TF32" in ln for ln in lines))
+    for (name, inst), (n, tf32) in sorted(found.items()):
+        want = (name, inst) in TENSOR_CORE_KERNELS
+        ok = (n > 0) == want and tf32 == 0
+        log(f"  SASS {name}{f'<{inst}>' if inst else ''}: {n} HMMA ({tf32} TF32)"
+            f"{' -- tensor cores' if want else ''} -> {'ok' if ok else 'FAIL'}")
         if not ok:
-            run.failures.append(f"{name} {form}: HMMA count {n} (tensor cores wanted: {want})")
-    if len(hmma) != 9:
-        run.failures.append(f"SASS: found {len(hmma)} of the 9 micro-benchmark kernels")
+            run.failures.append(f"SASS {name} {inst}: {n} HMMA, {tf32} TF32 "
+                                f"(tensor cores wanted: {want})")
+    missing = sorted(set(REPLACES) - {k for k, _ in found}) + \
+        sorted(f"{k} {i}" for k, i in TENSOR_CORE_KERNELS - set(found))
+    if missing:
+        run.failures.append(f"SASS: not found in the libraries: {missing}")
 
 
 def microbench_kernel_phase(run: Run, dev) -> None:
     """Each micro-benchmark kernel in each form against its plain version at
     MB_R and MB_RAGGED rows; at MB_R timed beside its one-rep time, its
     plain version and the library call (times the reps)."""
-    log("[kernels] micro-benchmark kernels vs their plain versions; SASS of the library")
+    log("[kernels] SASS of the libraries; micro-benchmark kernels vs their plain versions")
     sass_check(run)
     peaks = {**PEAK_FLOPS, "sfu": sfu_rate(dev)}
     for tool, mod in mb_tools().items():
@@ -2109,7 +2163,8 @@ def microbench_kernel_phase(run: Run, dev) -> None:
                     exact = dense["exact"](form)
                     top = exact.abs().max().item()
                     log(f"    against the float64 product: kernel "
-                        f"{(got_d.double() - exact).abs().max().item() / top:.3e}, plain "
+                        f"{(got_d.double() - exact).abs().max().item() / top:.3e}, plain (cuBLAS "
+                        f"fp32 products, TF32 off) "
                         f"{(ref_d.double() - exact).abs().max().item() / top:.3e} of max|ref|")
                 else:
                     diff = (got.float() - ref.float()).abs()
@@ -2204,7 +2259,7 @@ def kernels_line(run: Run) -> dict:
             "bound_by_fp32": fp.get("bound_by"),
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
                for k in ("chain_ms", "timed_at", "unsplit_chain_ms", "attention_ms",
-                         "chain_vs_unsplit", "reps1_ms") if k in t},
+                         "chain_vs_unsplit", "reps1_ms", "vs_dpmpp_per_step") if k in t},
             **({"err_checked_at_fp32": fp["err_checked_at"]}
                if "err_checked_at" in fp and "bf16" in r else {}),
             "launches_per_call": run.per_call.get((name, config), {}),
@@ -2247,6 +2302,7 @@ def main() -> int:
     run.phase("kernels EDM fpc", edm_kernel_phase, fpc_edm[1], fpc_edm[2], dev)
     ppc_sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
     run.phase("kernels ppc", ppc_kernel_phase, ppc_edm[1], ppc_edm[2], ppc_sched, dev)
+    run.phase("control", control_phase)
     run.phase("step kernels fpc", step_kernel_phase, "fpc", fpc_edm[1], fpc_edm[2],
               ddim_models[2].schedule, dev, BG)
     run.phase("step kernels ppc", step_kernel_phase, "ppc", ppc_edm[1], ppc_edm[2],

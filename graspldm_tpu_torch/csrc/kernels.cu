@@ -13,9 +13,20 @@
 // shared memory. The design keeps every activation of R rows resident in
 // shared memory for the whole stage (or, in the sampler, the whole
 // trajectory: no activation ever goes to device memory between ops or
-// steps), and reads each weight once per R rows through L1/L2 with one
-// vector load reused over a 4-token register tile. Products run on the CUDA
-// cores in fp32; tensor cores (wgmma) and TMA are later work.
+// steps), and reads each weight once per R rows.
+//
+// stage_kernel, final_kernel and the float32 sampler run every product on
+// the CUDA cores in fp32 (resnet1d_blocks.cuh: one vector load of a weight
+// row reused over a 4-token register tile). The bf16 ddim_sampler_kernel
+// runs its convs, projections and the attention's wqkv / wo products on the
+// tensor cores (mma.sync.m16n8k16, float32 accumulators; tc_blocks.cuh):
+// the block's R*L tokens are the product's M, A fragments come from the
+// activations in shared memory through ldmatrix, B from a fragment-ordered
+// bf16 copy of the weights made at packing time. Its rounding points are
+// the CUDA-core body's; only the order of the float32 sums differs. The
+// float32 instantiation keeps the CUDA-core body: a float32 product on the
+// tensor cores needs the exact bf16 split of B (mm_chain_kernel's f32 form,
+// microbench.cu, is that split's prototype). wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
 // interface, loaded with ctypes; see graspldm_tpu_torch/cuda_build.py).
@@ -81,7 +92,7 @@ final_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
 //   x0 = clip(c0*x - c1*eps);  ddim: x = c2*x + c3*x0
 //                              ddpm: x = c2*x0 + c3*x + c4*noise[s]
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(sizeof(T) == 2 ? kTcThreads : kThreads)
 ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embin,
                     const float* __restrict__ trows, const float* __restrict__ coefs,
                     const float* __restrict__ noise, const T* __restrict__ Wf,
@@ -95,7 +106,8 @@ ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embi
   __syncthreads();
 
   for (int s = 0; s < S; ++s) {
-    const float* eps = net_step(b, b.XC, 1.0f, trows + (size_t)s * CeE, R, L, E, Ce, G, Wf, net);
+    const float* eps = net_step<T, sizeof(T) == 2>(b, b.XC, 1.0f, trows + (size_t)s * CeE, R, L,
+                                                   E, Ce, G, Wf, net);
     const float* c = coefs + (size_t)s * 8;
     for (int idx = threadIdx.x; idx < R * L; idx += blockDim.x) {
       const float xt = b.XC[idx];
@@ -133,7 +145,8 @@ int launch_ddim(const float* xT, const float* embin, const float* trows, const f
                 const float* noise, const void* w, const long long* net, float* out, int BG,
                 int S, int L, int E, int Ce, int G, int cmax, int clip, float clip_range,
                 cudaStream_t st) {
-  return launch_rows<T>(ddim_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 1), BG, st, xT,
+  return launch_rows<T, sizeof(T) == 2 ? kTcThreads : kThreads>(
+      ddim_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 1), BG, st, xT,
                         embin, trows, coefs, noise, (const T*)w, net, out, BG, S, L, E, Ce, G,
                         cmax, clip, clip_range);
 }

@@ -14,25 +14,32 @@
 // mm_chain_kernel: acc = sum over reps of (x*x) @ pool, x bf16 [R, K], pool
 // [K, 128], acc float32 [R, 128]; after each rep x = bf16(x * mult).
 //   Bound: 2 * R * K * 128 * reps operations, 5.15e10 at R = 8192, K =
-//   2048, 12 reps, against ~39 MB of bytes: operations bound, at 67 TFLOP/s
-//   on the CUDA cores (f32) or 989 on the tensor cores (bf16, split x2).
-//   Design: the product stays dense (the tool times a dense product; the
-//   one-hot pool is not exploited). The reps loop runs inside the K loop:
-//   a block loads its x tile and pool tile once and runs every rep on them,
-//   carrying x_r in registers, so x and the pool are read from memory once
-//   and the reps cost only products. The sums are taken in another order
-//   than the plain version's (rep by rep), within float32 rounding.
-//   * f32: SIMT float32 FMA (no TF32: x*x has 16 significant bits). A
-//     block of 128 threads owns 32 rows x 128 columns, 4 x 8 outputs a
-//     thread; per K tile of 16 the float32 pool tile and each rep's squares
-//     sit in shared memory.
-//   * bf16 / split: tensor cores, mma.sync.m16n8k16 bf16 x bf16 -> float32.
-//     A block of 4 warps owns 32 rows; a warp owns 16 rows x 64 columns (8
-//     n-tiles of 8). Per k-step of 16 each thread loads its A-fragment
-//     pairs of x straight from device memory and its B fragments of the
-//     bf16 pool (16-bit loads, cached), keeps both in registers for all
-//     reps, and forms each rep's A in registers: bf16: bf16(x*x); split:
-//     hi = bf16(x*x), lo = bf16(x*x - hi), two products into one sum.
+//   2048, 12 reps, against ~39 MB of bytes: operations bound, at 989
+//   TFLOP/s on the tensor cores (bf16; split x2; f32 x5 there, or once at
+//   67 TFLOP/s on the CUDA cores, whichever is less).
+//   Design: every form runs on the tensor cores, mma.sync.m16n8k16 bf16 x
+//   bf16 -> float32; the forms differ only in the A operands a rep forms
+//   from x and the B operands (pool parts) they meet:
+//     bf16:  bf16(x*x) against pb;
+//     split: hi = bf16(x*x), lo = bf16(x*x - hi) (x*x has 16 significant
+//            bits, so hi + lo is x*x exactly) against pb;
+//     f32:   hi and lo against the exact three-part bf16 split of the
+//            float32 pool, pf = p1 + p2 + p3 (the wrapper makes it): hi*p1,
+//            hi*p2, hi*p3, lo*p1, lo*p2, each product exact; lo*p3 is at
+//            most 2^-24 of its term and is dropped. The function is the
+//            float32 one (x*x times pf, summed in float32), as a TPU's matrix
+//            unit computes an f32 product.
+//   A block of 8 warps owns 64 rows: warp w the 16 rows of m-tile w % 4 and
+//   all 128 columns (16 n-tiles), over the k-steps of its half, w / 4, of
+//   each 32-deep K tile; the halves are added through shared memory at the
+//   end (R = 8192: 128 blocks, one an SM). The x and pool tiles of each K
+//   tile arrive by cp.async in a kMmStages ring (rows padded by 16 bytes:
+//   conflict-free ldmatrix); each warp reads its A fragments of x with
+//   ldmatrix and the B fragments of each pool part with ldmatrix.trans, once
+//   a K tile, and runs every rep on them, carrying x_r in registers, so x
+//   and the pool are read from memory once and the reps cost only products.
+//   The sums are taken in another order than the plain version's (rep by
+//   rep), within float32 rounding.
 //
 // silu_chain_kernel: reps of y = silu(x), x = bf16(y * mult) on bf16 x.
 //   Bound: 2 bytes in and 2 out per element (20 us at 8192 x 2048), but the
@@ -106,128 +113,172 @@ __device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4], uint32
 // ---------------------------------------------------------------------------
 
 constexpr int kMmN = 128;
-constexpr int kMmThreads = 128;
-constexpr int kMmRows = 32;  // rows a block owns, both bodies
-constexpr int kF32BK = 16;
+constexpr int kMmThreads = 256;
+constexpr int kMmRows = 64;                // rows a block owns
+constexpr int kMmBK = 32;                  // K tile: two k-steps, one a warp half
+constexpr int kMmStages = 4;               // K tiles in flight
+constexpr int kMmXStride = kMmBK + 8;      // bf16 per x row in shared memory (80 bytes)
+constexpr int kMmPStride = kMmN + 8;       // bf16 per pool row (272 bytes)
+constexpr int kMmXTile = kMmRows * kMmXStride;
+constexpr int kMmPTile = kMmBK * kMmPStride;
 enum { kFormF32 = 0, kFormBf16 = 1, kFormSplit = 2 };
 
 template <int FORM>
+__host__ __device__ constexpr int mm_parts() { return FORM == kFormF32 ? 3 : 1; }
+template <int FORM>
+__host__ __device__ constexpr size_t mm_smem() {
+  return sizeof(unsigned short) * kMmStages * (kMmXTile + mm_parts<FORM>() * kMmPTile);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool ok) {
+  const uint32_t d = (uint32_t)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t r[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t r[4], const void* p) {
+  const uint32_t s = (uint32_t)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// x: bf16 [R, K]; pool: bf16 [parts][K][128] (f32: p1, p2, p3; else pb)
+template <int FORM>
 __global__ void __launch_bounds__(kMmThreads)
-mm_chain_kernel(const unsigned short* __restrict__ x, const float* __restrict__ pf,
-                const unsigned short* __restrict__ pb, float* __restrict__ out, int R, int K,
-                int reps, unsigned short mult_bits) {
+mm_chain_kernel(const unsigned short* __restrict__ x, const unsigned short* __restrict__ pool,
+                float* __restrict__ out, int R, int K, int reps, unsigned short mult_bits) {
+  constexpr int P = mm_parts<FORM>();
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned short* xs = reinterpret_cast<unsigned short*>(smem_raw);  // [stage][kMmXTile]
+  unsigned short* ps = xs + kMmStages * kMmXTile;                     // [stage][P][kMmPTile]
   const float m = bits_f(mult_bits);
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3, mt = warp & 3, kh = warp >> 2;
   const int row0 = blockIdx.x * kMmRows;
-  if constexpr (FORM == kFormF32) {
-    __shared__ __align__(16) float Ss[kF32BK][kMmRows];  // this rep's squares, k-major
-    __shared__ __align__(16) float Bs[kF32BK][kMmN];
-    const int tx = tid & 15, ty = tid >> 4;        // outputs: rows ty*4+i, cols tx*4+j, 64+tx*4+j
-    const int lr = tid >> 2, lk = (tid & 3) * 4;   // x tile: row lr, k lk..lk+3
-    const bool lok = row0 + lr < R;
-    const unsigned short* xr = x + (size_t)(lok ? row0 + lr : 0) * K;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += kF32BK) {
-      // every thread passed the previous tile's last barrier: its readers are done
-      float xv[4] = {0.f, 0.f, 0.f, 0.f};
-      if (lok) {
-        const uint2 raw = __ldg(reinterpret_cast<const uint2*>(xr + k0 + lk));
-        xv[0] = lo_f(raw.x); xv[1] = hi_f(raw.x); xv[2] = lo_f(raw.y); xv[3] = hi_f(raw.y);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int idx = tid + i * kMmThreads, kk = idx >> 5, c4 = idx & 31;
-        reinterpret_cast<float4*>(&Bs[kk][0])[c4] =
-            __ldg(reinterpret_cast<const float4*>(pf + (size_t)(k0 + kk) * kMmN) + c4);
-      }
-      for (int r = 0; r < reps; ++r) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) Ss[lk + i][lr] = xv[i] * xv[i];  // exact in float32
-        __syncthreads();
-#pragma unroll
-        for (int kk = 0; kk < kF32BK; ++kk) {
-          const float4 a = *reinterpret_cast<const float4*>(&Ss[kk][ty * 4]);
-          const float4 b0 = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-          const float4 b1 = *reinterpret_cast<const float4*>(&Bs[kk][64 + tx * 4]);
-          const float av[4] = {a.x, a.y, a.z, a.w};
-          const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-        }
-        __syncthreads();
-#pragma unroll
-        for (int i = 0; i < 4; ++i) xv[i] = rbf(xv[i] * m);
-      }
+  const int ntiles = K / kMmBK;
+
+  // one K tile into ring slot `slot`: x rows (4 16-byte chunks a row), each
+  // pool part (16 chunks a row); rows past R are zero-filled
+  auto issue = [&](int tile, int slot) {
+    const int k0 = tile * kMmBK;
+    {
+      const int r = tid >> 2, c = (tid & 3) * 8;
+      const bool ok = row0 + r < R;
+      cp_async16(xs + slot * kMmXTile + r * kMmXStride + c,
+                 x + (size_t)(ok ? row0 + r : 0) * K + k0 + c, ok);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = row0 + ty * 4 + i;
-      if (row < R) {
-        float4* o = reinterpret_cast<float4*>(out + (size_t)row * kMmN);
-        o[tx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
-        o[16 + tx] = make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+    for (int p = 0; p < P; ++p)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int idx = tid + i * kMmThreads, r = idx >> 4, c = (idx & 15) * 8;
+        cp_async16(ps + (slot * P + p) * kMmPTile + r * kMmPStride + c,
+                   pool + ((size_t)p * K + k0 + r) * kMmN + c, true);
       }
-    }
-  } else {
-    const int lane = tid & 31, warp = tid >> 5, g = lane >> 2, t = lane & 3;
-    const int rbase = row0 + (warp >> 1) * 16, cbase = (warp & 1) * 64;
-    const bool ok0 = rbase + g < R, ok1 = rbase + g + 8 < R;
-    const uint32_t* x0 = reinterpret_cast<const uint32_t*>(x + (size_t)(ok0 ? rbase + g : 0) * K);
-    const uint32_t* x1 = reinterpret_cast<const uint32_t*>(x + (size_t)(ok1 ? rbase + g + 8 : 0) * K);
-    float acc[8][4];
+  };
+
+  float acc[16][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+  for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      // A pairs: (row g, k0+2t), (row g+8, k0+2t), (row g, k0+2t+8), (row g+8, k0+2t+8)
-      const int p = (k0 >> 1) + t;
-      uint32_t xa[4] = {ok0 ? __ldg(x0 + p) : 0u, ok1 ? __ldg(x1 + p) : 0u,
-                        ok0 ? __ldg(x0 + p + 4) : 0u, ok1 ? __ldg(x1 + p + 4) : 0u};
-      // B pairs of column n = cbase + 8j + g: rows (k0+2t, +1) and (k0+2t+8, +9)
-      uint32_t b[8][2];
-      const size_t kr = (size_t)(k0 + 2 * t) * kMmN;
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const size_t n = cbase + 8 * j + g;
-        b[j][0] = pair16(pb, kr + n, kr + kMmN + n);
-        b[j][1] = pair16(pb, kr + 8 * kMmN + n, kr + 9 * kMmN + n);
-      }
+  for (int s = 0; s < kMmStages - 1; ++s) {
+    if (s < ntiles) issue(s, s);
+    cp_async_commit();
+  }
+  for (int tile = 0; tile < ntiles; ++tile) {
+    cp_async_wait<kMmStages - 2>();
+    __syncthreads();  // tile's copies landed; every warp is done with tile - 1's slot
+    if (tile + kMmStages - 1 < ntiles) issue(tile + kMmStages - 1, (tile + kMmStages - 1) % kMmStages);
+    cp_async_commit();
+    const int slot = tile % kMmStages;
+    // A pairs of x: rows 16*mt + (g, g + 8), k 16*kh + (2t, 2t + 8)
+    uint32_t xa[4];
+    ldsm_x4(xa, xs + slot * kMmXTile + (16 * mt + (lane & 15)) * kMmXStride + 16 * kh +
+                    (lane >> 4) * 8);
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      // B fragments of n-tiles 2q, 2q + 1: k rows 16*kh + 0..15, columns 16q..16q+15
+      uint32_t b[8][4];
+      const unsigned short* pt = ps + (slot * P + p) * kMmPTile +
+                                 (16 * kh + (lane & 7) + ((lane >> 3) & 1) * 8) * kMmPStride +
+                                 (lane >> 4) * 8;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) ldsm_x4_t(b[q], pt + 16 * q);
+      // the A operands a rep forms against this part: hi, and lo but for p3
+      const bool with_lo = FORM == kFormSplit || (FORM == kFormF32 && p < 2);
+      uint32_t xr[4] = {xa[0], xa[1], xa[2], xa[3]};
       for (int r = 0; r < reps; ++r) {
-        uint32_t a[4], alo[4];
+        uint32_t hi[4], lo[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          const float f0 = lo_f(xa[i]), f1 = hi_f(xa[i]);
+          const float f0 = lo_f(xr[i]), f1 = hi_f(xr[i]);
           const float q0 = f0 * f0, q1 = f1 * f1;  // exact in float32
-          a[i] = pack2(q0, q1);
-          if constexpr (FORM == kFormSplit) alo[i] = pack2(q0 - lo_f(a[i]), q1 - hi_f(a[i]));
+          hi[i] = pack2(q0, q1);
+          lo[i] = pack2(q0 - lo_f(hi[i]), q1 - hi_f(hi[i]));
         }
 #pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          mma16816(acc[j], a, b[j][0], b[j][1]);
-          if constexpr (FORM == kFormSplit) mma16816(acc[j], alo, b[j][0], b[j][1]);
+        for (int q = 0; q < 8; ++q) {
+          mma16816(acc[2 * q], hi, b[q][0], b[q][1]);
+          mma16816(acc[2 * q + 1], hi, b[q][2], b[q][3]);
+          if (with_lo) {
+            mma16816(acc[2 * q], lo, b[q][0], b[q][1]);
+            mma16816(acc[2 * q + 1], lo, b[q][2], b[q][3]);
+          }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) xa[i] = pack2(lo_f(xa[i]) * m, hi_f(xa[i]) * m);
+        for (int i = 0; i < 4; ++i) xr[i] = pack2(lo_f(xr[i]) * m, hi_f(xr[i]) * m);
       }
     }
+  }
+  // add the two K halves: warps kh = 1 hand theirs over through the ring
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(smem_raw) + mt * 64 * 32;  // [mt][64 values][32 lanes]
+  if (kh == 1) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = cbase + 8 * j + 2 * t;
-      if (ok0)
-        *reinterpret_cast<float2*>(out + (size_t)(rbase + g) * kMmN + col) =
-            make_float2(acc[j][0], acc[j][1]);
-      if (ok1)
-        *reinterpret_cast<float2*>(out + (size_t)(rbase + g + 8) * kMmN + col) =
-            make_float2(acc[j][2], acc[j][3]);
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[(j * 4 + e) * 32 + lane] = acc[j][e];
+  }
+  __syncthreads();
+  if (kh == 0) {
+    const int ra = row0 + 16 * mt + g, rb = ra + 8;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[e] = acc[j][e] + red[(j * 4 + e) * 32 + lane];
+      const int col = 8 * j + 2 * t;
+      if (ra < R) *reinterpret_cast<float2*>(out + (size_t)ra * kMmN + col) = make_float2(v[0], v[1]);
+      if (rb < R) *reinterpret_cast<float2*>(out + (size_t)rb * kMmN + col) = make_float2(v[2], v[3]);
     }
   }
+}
+
+template <int FORM>
+int launch_mm(const unsigned short* x, const unsigned short* pool, float* out, int R, int K,
+              int reps, unsigned short mb, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      mm_chain_kernel<FORM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)mm_smem<FORM>());
+  if (e != cudaSuccess) return (int)e;
+  mm_chain_kernel<FORM><<<(R + kMmRows - 1) / kMmRows, kMmThreads, mm_smem<FORM>(), st>>>(
+      x, pool, out, R, K, reps, mb);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -435,27 +486,20 @@ int launch_bcast(const unsigned short* s, const unsigned short* v, const unsigne
 // launched), or -1 for arguments the kernel does not take.
 extern "C" {
 
-// x: bf16 [R, K] (K a multiple of 16), pf: float32 [K, 128], pb: bf16
-// [K, 128], out: float32 [R, 128]; form 0 f32, 1 bf16, 2 split
-int gl_mm_chain(int form, const void* x, const void* pf, const void* pb, void* out, int R, int K,
-                int reps, int mult_bits, void* stream) {
-  if (form < 0 || form > 2 || R < 0 || K < 16 || K % 16 || reps < 1) return -1;
+// x: bf16 [R, K] (K a multiple of 32), pool: bf16 [3, K, 128] (form 0 f32:
+// the float32 pool's three-part split) or [K, 128] (form 1 bf16, 2 split),
+// out: float32 [R, 128]
+int gl_mm_chain(int form, const void* x, const void* pool, void* out, int R, int K, int reps,
+                int mult_bits, void* stream) {
+  if (form < 0 || form > 2 || R < 0 || K < kMmBK || K % kMmBK || reps < 1) return -1;
   if (R == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const dim3 grid((R + kMmRows - 1) / kMmRows);
   const auto* xs = (const unsigned short*)x;
-  const auto* pbs = (const unsigned short*)pb;
+  const auto* ps = (const unsigned short*)pool;
   const unsigned short mb = (unsigned short)mult_bits;
-  if (form == kFormF32)
-    mm_chain_kernel<kFormF32><<<grid, kMmThreads, 0, st>>>(xs, (const float*)pf, pbs, (float*)out,
-                                                          R, K, reps, mb);
-  else if (form == kFormBf16)
-    mm_chain_kernel<kFormBf16><<<grid, kMmThreads, 0, st>>>(xs, (const float*)pf, pbs,
-                                                           (float*)out, R, K, reps, mb);
-  else
-    mm_chain_kernel<kFormSplit><<<grid, kMmThreads, 0, st>>>(xs, (const float*)pf, pbs,
-                                                            (float*)out, R, K, reps, mb);
-  return (int)cudaGetLastError();
+  if (form == kFormF32) return launch_mm<kFormF32>(xs, ps, (float*)out, R, K, reps, mb, st);
+  if (form == kFormBf16) return launch_mm<kFormBf16>(xs, ps, (float*)out, R, K, reps, mb, st);
+  return launch_mm<kFormSplit>(xs, ps, (float*)out, R, K, reps, mb, st);
 }
 
 // x, out: bf16 [n]; form 0 f32, 1 bf16exp, 2 mixexp

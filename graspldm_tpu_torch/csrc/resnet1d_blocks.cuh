@@ -87,6 +87,16 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// n / d and n % d in the block's index math (token, channel, group, row):
+// the plain integer division. tc_blocks.cuh's FastDiv gives the same
+// quotients by a multiply-high.
+struct PlainDiv {
+  int d;
+  __device__ explicit PlainDiv(int d_) : d(d_) {}
+  __device__ int div(int n) const { return n / d; }
+  __device__ int mod(int n) const { return n % d; }
+};
+
 // ---------------------------------------------------------------------------
 // shared-memory plan: per-row element counts of every buffer
 // ---------------------------------------------------------------------------
@@ -247,24 +257,59 @@ __device__ inline void conv3(int M, int L, int C, int N, const T* X,
   }
 }
 
+// The products of a network piece (the resblocks' convs, the attention's
+// wqkv / wo / scores, the projection), as the pieces below call them: `i`
+// names the product within its piece. These run them on the CUDA cores
+// (every kernel); tc_blocks.cuh's TcProducts runs all but the scores on the
+// tensor cores.
+struct SimtProducts {
+  using Div = PlainDiv;
+  // the attention's scores S[r][h][l][j] = sum_d q[r,l,h,d] k[r,j,h,d], from
+  // q and k in QKV [R][L][3 * kHd]
+  template <typename T>
+  __device__ void scores(const T* QKV, float* S, int R, int L) const {
+    constexpr int W3 = 3 * kHd;
+    for (int p = threadIdx.x; p < R * kHeads * L * L; p += blockDim.x) {
+      const int j = p % L, l = (p / L) % L, h = (p / (L * L)) % kHeads, r = p / (L * L * kHeads);
+      const T* q = QKV + (size_t)(r * L + l) * W3 + h * kDimHead;
+      const T* k = QKV + (size_t)(r * L + j) * W3 + kHd + h * kDimHead;
+      float s = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < kDimHead; ++d) s = fmaf(to_f(q[d]), to_f(k[d]), s);
+      S[p] = s;
+    }
+  }
+  template <typename T, typename Epi>
+  __device__ void conv3(int, int M, int L, int C, int N, const T* X, const T* __restrict__ W,
+                        Epi epi) const {
+    gl::conv3(M, L, C, N, X, W, epi);
+  }
+  template <typename T, typename Epi>
+  __device__ void gemm(int, int M, int N, int K, const T* A, int lda, const T* __restrict__ W,
+                       Epi epi) const {
+    gl::gemm<4>(M, N, K, A, lda, W, epi);
+  }
+};
+
 // ---------------------------------------------------------------------------
 // norms
 // ---------------------------------------------------------------------------
 
 // GroupNorm statistics over (L positions x C/G channels) of each (row,
 // group): ST[2*(r*G+g)] = mean, [+1] = rsqrt(var + 1e-5). One warp per pair.
-template <typename T>
+template <typename T, typename D = PlainDiv>
 __device__ inline void group_stats(const T* H, int R, int L, int C, int G, float* ST) {
   const int gs = C / G, n = L * gs;
   const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  const D gsd(gs);
   for (int p = threadIdx.x >> 5; p < R * G; p += nw) {
     const T* base = H + (size_t)(p / G) * L * C + (p % G) * gs;
     float s = 0.f;
-    for (int i = lane; i < n; i += 32) s += to_f(base[(i / gs) * C + i % gs]);
+    for (int i = lane; i < n; i += 32) s += to_f(base[gsd.div(i) * C + gsd.mod(i)]);
     const float mu = warp_sum(s) / n;
     float v = 0.f;
     for (int i = lane; i < n; i += 32) {
-      const float d = to_f(base[(i / gs) * C + i % gs]) - mu;
+      const float d = to_f(base[gsd.div(i) * C + gsd.mod(i)]) - mu;
       v += d * d;
     }
     v = warp_sum(v) / n;
@@ -301,9 +346,10 @@ __device__ inline void layer_norm_tokens(const T* SRC, T* DST, const T* resid, i
 // ResnetBlock1D at width C on X (in place). ESUM [R][E] is the fp32 sum of
 // the Ce conditioning-channel embeddings (sum_e emb_e @ W == sum_e (emb_e @
 // W): the multi-channel FiLM needs only the sum).
-template <typename T>
+template <typename T, typename P = SimtProducts>
 __device__ inline void resblock(const Bufs<T>& b, T* X, int R, int L, int C, int E, int Ce,
-                                int G, const T* __restrict__ Wf, const long long* sl) {
+                                int G, const T* __restrict__ Wf, const long long* sl,
+                                const P& prod = P()) {
   const T* mlpW = Wf + sl[S_MLPW];
   const T* mlpB = Wf + sl[S_MLPB];
   const T* w1 = Wf + sl[S_W1];
@@ -319,28 +365,30 @@ __device__ inline void resblock(const Bufs<T>& b, T* X, int R, int L, int C, int
   float* SS = b.SS;
   T* H = b.H;
   T* H2 = b.H2;
+  using D = typename P::Div;
+  const D cd(C), lcd(L * C), gsd(gs);
 
   gemm<1>(R, C2, E, b.ESUM, E, mlpW,
           [&](int r, int n, float acc) { SS[r * C2 + n] = acc + ce * ldw(mlpB + n); });
-  conv3(M, L, C, C, X, w1,
-        [&](int m, int n, float acc) { H[m * C + n] = from_f<T>(acc + ldw(b1 + n)); });
+  prod.conv3(0, M, L, C, C, X, w1,
+             [&](int m, int n, float acc) { H[m * C + n] = from_f<T>(acc + ldw(b1 + n)); });
   __syncthreads();
-  group_stats(H, R, L, C, G, b.ST);
+  group_stats<T, D>(H, R, L, C, G, b.ST);
   __syncthreads();
   for (int idx = threadIdx.x; idx < M * C; idx += blockDim.x) {
-    const int c = idx % C, r = idx / (L * C), p = r * G + c / gs;
+    const int c = cd.mod(idx), r = lcd.div(idx), p = r * G + gsd.div(c);
     float y = (to_f(H[idx]) - b.ST[2 * p]) * b.ST[2 * p + 1] * ldw(g1 + c) + ldw(be1 + c);
     y = y * (SS[r * C2 + c] + ce) + SS[r * C2 + C + c];
     H[idx] = from_f<T>(silu(y));
   }
   __syncthreads();
-  conv3(M, L, C, C, H, w2,
-        [&](int m, int n, float acc) { H2[m * C + n] = from_f<T>(acc + ldw(b2 + n)); });
+  prod.conv3(1, M, L, C, C, H, w2,
+             [&](int m, int n, float acc) { H2[m * C + n] = from_f<T>(acc + ldw(b2 + n)); });
   __syncthreads();
-  group_stats(H2, R, L, C, G, b.ST);
+  group_stats<T, D>(H2, R, L, C, G, b.ST);
   __syncthreads();
   for (int idx = threadIdx.x; idx < M * C; idx += blockDim.x) {
-    const int c = idx % C, r = idx / (L * C), p = r * G + c / gs;
+    const int c = cd.mod(idx), r = lcd.div(idx), p = r * G + gsd.div(c);
     const float y = (to_f(H2[idx]) - b.ST[2 * p]) * b.ST[2 * p + 1] * ldw(g2 + c) + ldw(be2 + c);
     X[idx] = from_f<T>(silu(y) + to_f(X[idx]));
   }
@@ -349,9 +397,10 @@ __device__ inline void resblock(const Bufs<T>& b, T* X, int R, int L, int C, int
 
 // Residual linear attention at width C on X (in place):
 // X += LN_out(Wo @ ((q k^T) v) + bo), q/k/v from LN_in(X).
-template <typename T>
+template <typename T, typename P = SimtProducts>
 __device__ inline void attention(const Bufs<T>& b, T* X, int R, int L, int C,
-                                 const T* __restrict__ Wf, const long long* rec) {
+                                 const T* __restrict__ Wf, const long long* rec,
+                                 const P& prod = P()) {
   const T* gin = Wf + rec[R_ATTN_G];
   const T* wqkv = Wf + rec[R_WQKV];
   const T* wo = Wf + rec[R_WO];
@@ -366,8 +415,8 @@ __device__ inline void attention(const Bufs<T>& b, T* X, int R, int L, int C,
 
   layer_norm_tokens<T>(X, H, nullptr, M, C, gin);
   __syncthreads();
-  gemm<4>(M, W3, C, H, C, wqkv,
-          [&](int m, int n, float acc) { QKV[m * W3 + n] = from_f<T>(acc); });
+  prod.gemm(0, M, W3, C, H, C, wqkv,
+            [&](int m, int n, float acc) { QKV[m * W3 + n] = from_f<T>(acc); });
   __syncthreads();
   {  // q: softmax over the head channels (one warp per token x head)
     const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
@@ -388,20 +437,12 @@ __device__ inline void attention(const Bufs<T>& b, T* X, int R, int L, int C,
     }
   }
   __syncthreads();
-  // scores S[r][h][l][j] = sum_d q[r,l,h,d] k[r,j,h,d]
-  for (int p = threadIdx.x; p < R * kHeads * L * L; p += blockDim.x) {
-    const int j = p % L, l = (p / L) % L, h = (p / (L * L)) % kHeads, r = p / (L * L * kHeads);
-    const T* q = QKV + (size_t)(r * L + l) * W3 + h * kDimHead;
-    const T* k = QKV + (size_t)(r * L + j) * W3 + kHd + h * kDimHead;
-    float s = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < kDimHead; ++d) s = fmaf(to_f(q[d]), to_f(k[d]), s);
-    S[p] = s;
-  }
+  prod.scores(QKV, S, R, L);
   __syncthreads();
   // out[r, l, h*D + e] = sum_j S[r][h][l][j] v[r, j, h, e]
+  const typename P::Div ld(L);
   for (int p = threadIdx.x; p < M * kHd; p += blockDim.x) {
-    const int he = p % kHd, m = p / kHd, r = m / L, l = m % L, h = he / kDimHead;
+    const int he = p % kHd, m = p / kHd, r = ld.div(m), l = ld.mod(m), h = he / kDimHead;
     const float* s = S + ((size_t)(r * kHeads + h) * L + l) * L;
     const T* v = QKV + (size_t)r * L * W3 + 2 * kHd + he;
     float o = 0.f;
@@ -409,21 +450,22 @@ __device__ inline void attention(const Bufs<T>& b, T* X, int R, int L, int C,
     H2[p] = from_f<T>(o);
   }
   __syncthreads();
-  gemm<4>(M, C, kHd, H2, kHd, wo,
-          [&](int m, int n, float acc) { H[m * C + n] = from_f<T>(acc + ldw(bo + n)); });
+  prod.gemm(1, M, C, kHd, H2, kHd, wo,
+            [&](int m, int n, float acc) { H[m * C + n] = from_f<T>(acc + ldw(bo + n)); });
   __syncthreads();
   layer_norm_tokens<T>(H, X, X, M, C, gout);
   __syncthreads();
 }
 
 // k3 projection conv X [R][L][C] -> OUT [R][L][Cout]
-template <typename T>
+template <typename T, typename P = SimtProducts>
 __device__ inline void proj(T* X, T* OUT, int R, int L, int C, int Cout,
-                            const T* __restrict__ Wf, const long long* rec) {
+                            const T* __restrict__ Wf, const long long* rec,
+                            const P& prod = P()) {
   const T* wp = Wf + rec[R_WP];
   const T* bp = Wf + rec[R_BP];
-  conv3(R * L, L, C, Cout, X, wp,
-        [&](int m, int n, float acc) { OUT[m * Cout + n] = from_f<T>(acc + ldw(bp + n)); });
+  prod.conv3(0, R * L, L, C, Cout, X, wp,
+             [&](int m, int n, float acc) { OUT[m * Cout + n] = from_f<T>(acc + ldw(bp + n)); });
   __syncthreads();
 }
 

@@ -7,10 +7,14 @@
 // conditioning embedding and every activation of the network live in
 // shared memory from the first step to the last. net_step is one
 // evaluation of the whole denoiser on those rows; the kernels differ only
-// in the fp32 update around it.
+// in the fp32 update around it. net_step<T, true> (ddim_sampler_kernel's
+// bf16 instantiation) runs the convs, the projections and the attention's
+// wqkv / wo on the tensor cores (tc_blocks.cuh), from the fragment-ordered
+// weights of the layout's tensor-core table; everything else, and every
+// other instantiation, runs resnet1d_blocks.cuh's CUDA-core body.
 #pragma once
 
-#include "resnet1d_blocks.cuh"
+#include "tc_blocks.cuh"
 
 namespace gl {
 
@@ -29,10 +33,10 @@ int rows_per_block(const Plan& p) {
   return r > kMaxRows ? kMaxRows : r;
 }
 
-// Launch `kernel` over ceil(BG / R) blocks of R rows, R the most rows of
-// plan p that fit the shared-memory budget. Returns the cudaError_t of the
-// launch (0 = launched).
-template <typename T, typename Kernel, typename... Args>
+// Launch `kernel` over ceil(BG / R) blocks of R rows and Threads threads,
+// R the most rows of plan p that fit the shared-memory budget. Returns the
+// cudaError_t of the launch (0 = launched).
+template <typename T, int Threads = kThreads, typename Kernel, typename... Args>
 int launch_rows(Kernel kernel, const Plan& p, int BG, cudaStream_t st, Args... args) {
   const int R = rows_per_block<T>(p);
   if (R < 1) return (int)cudaErrorInvalidValue;
@@ -40,7 +44,7 @@ int launch_rows(Kernel kernel, const Plan& p, int BG, cudaStream_t st, Args... a
   cudaError_t e =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (e != cudaSuccess) return (int)e;
-  kernel<<<(BG + R - 1) / R, kThreads, bytes, st>>>(args..., R);
+  kernel<<<(BG + R - 1) / R, Threads, bytes, st>>>(args..., R);
   return (int)cudaGetLastError();
 }
 
@@ -63,8 +67,9 @@ __device__ inline void load_sampler_rows(const Bufs<T>& b, const float* __restri
 //   out  = final resblock + 1x1 head, rounded to T, stored as fp32.
 // src [R*L] is fp32 in shared memory; the caller synchronises after
 // writing it. Returns out = b.SS [R*L], valid when this returns (it ends
-// synchronised) and until the next net_step.
-template <typename T>
+// synchronised) and until the next net_step. TC (bf16 only): the
+// products on the tensor cores.
+template <typename T, bool TC = false>
 __device__ inline const float* net_step(const Bufs<T>& b, const float* src, float scale,
                                         const float* __restrict__ trow, int R, int L, int E,
                                         int Ce, int G, const T* __restrict__ Wf,
@@ -93,18 +98,30 @@ __device__ inline const float* net_step(const Bufs<T>& b, const float* src, floa
     X[idx] = from_f<T>(acc + ldw(init_b + c));
   }
   __syncthreads();
+  // the products of the piece whose tensor-core table entries start at
+  // `slot`; scratch: QKV, dead but inside the attention, where the wqkv
+  // product (i = 0, writing QKV) takes OUT, dead until the projection
+  auto prod = [&](int slot, bool attn) {
+    if constexpr (TC) {
+      const int nq = (int)(reinterpret_cast<T*>(b.S) - b.QKV), no = (int)(b.H - b.OUT);
+      return TcProducts{Wf, net + net[N_TC] + slot, {attn ? OUT : b.QKV, b.QKV},
+                        {attn ? no : nq, nq}};
+    } else {
+      return SimtProducts{};
+    }
+  };
   for (int st = 0; st < n_st; ++st) {
     const long long* rec = net + NET_HDR + st * REC_SIZE;
-    const int C = (int)rec[R_C], Cout = (int)rec[R_COUT];
-    resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES1);
-    resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES2);
-    attention(b, X, R, L, C, Wf, rec);
-    proj(X, OUT, R, L, C, Cout, Wf, rec);
+    const int C = (int)rec[R_C], Cout = (int)rec[R_COUT], tc = st * TC_REC;
+    resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES1, prod(tc + T_R1, false));
+    resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES2, prod(tc + T_R2, false));
+    attention(b, X, R, L, C, Wf, rec, prod(tc + T_ATTN, true));
+    proj(X, OUT, R, L, C, Cout, Wf, rec, prod(tc + T_PROJ, false));
     T* tmp = X; X = OUT; OUT = tmp;
   }
   const long long* fin = net + NET_HDR + n_st * REC_SIZE;
   const int Cf = (int)fin[R_C];
-  resblock(b, X, R, L, Cf, E, Ce, G, Wf, fin + R_RES1);
+  resblock(b, X, R, L, Cf, E, Ce, G, Wf, fin + R_RES1, prod(n_st * TC_REC + T_R1, false));
   float* out = b.SS;  // free after the final resblock
   head(X, R * L, Cf, Wf, fin, [&](int m, float v) { out[m] = v; });
   __syncthreads();

@@ -30,7 +30,7 @@ __all__ = ["load_library", "library_path", "nvcc_path", "BUILD_DIR", "KernelCoun
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-_HEADERS = ("resnet1d_blocks.cuh", "sampler_body.cuh")
+_HEADERS = ("resnet1d_blocks.cuh", "sampler_body.cuh", "tc_blocks.cuh")
 _FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -77,8 +77,8 @@ _SOURCES = {
         "gl_fps_max_points": [],
     },
     "microbench.cu": {
-        # form, x, pf, pb, out, R, K, reps, mult_bits, stream
-        "gl_mm_chain": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # form, x, pool, out, R, K, reps, mult_bits, stream
+        "gl_mm_chain": [_I, _P, _P, _P, _I, _I, _I, _I, _P],
         # form, x, out, n, reps, mult_bits, stream
         "gl_silu_chain": [_I, _P, _P, ctypes.c_longlong, _I, _I, _P],
         # form, s, v, onehot, out, R, reps, half_bits, zero_bits, stream

@@ -57,6 +57,7 @@ __all__ = [
     "HYBRID_FINAL_KERNEL",
     "XLA_ATTENTION",
     "PackedNet",
+    "tc_fragments",
     "stage_plain",
     "final_plain",
     "full_plain",
@@ -74,6 +75,11 @@ __all__ = [
 # int64 record layout read by csrc/resnet1d_blocks.cuh (R_* / S_* / N_*)
 REC_SIZE = 40
 NET_HDR = 8
+N_TC = 4  # header slot: where the tensor-core table starts in the layout (0: none)
+# the tensor-core table (csrc/tc_blocks.cuh, T_*): per stage, the offsets of
+# the fragment-ordered copies of its products; then the final block's two
+TC_SLOTS = ("r1_w1", "r1_w2", "r2_w1", "r2_w2", "wqkv", "wo", "wp")
+TC_REC = 8
 RES_SLOTS = ("mlp_w", "mlp_b", "w1", "b1", "g1", "be1", "w2", "b2", "g2", "be2")
 ATTN_SLOTS = ("attn_g", "wqkv", "wo", "bo", "out_g", "wp", "bp")
 AUX_KEYS = ("fourier_w", "time_w1", "time_b1", "time_w2", "time_b2", "input_w", "input_b",
@@ -134,6 +140,16 @@ class PackedNet:
             pad = (-flat.numel()) % 8
             chunks += [flat, flat.new_zeros(pad)]
             n += flat.numel() + pad
+        # bf16: the tensor-core products' weights once more, fragment-ordered
+        # (tc_fragments), after the math form; ddim_sampler_kernel reads them
+        self.n_math = n
+        tc = {}
+        if dtype == torch.bfloat16:
+            for k, (taps, v) in _tc_products(math_w, dims).items():
+                tc[k] = n
+                frag = tc_fragments(v, taps)
+                chunks.append(frag)
+                n += frag.numel()
         self.flat = torch.cat(chunks).to(device=device, dtype=dtype)
         self.w = {
             k: self.flat[offsets[k]: offsets[k] + v.numel()].view(v.shape)
@@ -155,11 +171,22 @@ class PackedNet:
         rec += [offsets[f"final_{s}"] for s in RES_SLOTS]
         rec += [offsets["final_fw"], offsets["final_fb"]]
         layout += rec + [0] * (REC_SIZE - len(rec))
+        if tc:
+            layout[N_TC] = len(layout)
+            for i in range(len(dims.block_channels)):
+                layout += [tc[f"b{i}_{s}"] for s in TC_SLOTS] + [0] * (TC_REC - len(TC_SLOTS))
+            layout += [tc["final_w1"], tc["final_w2"]] + [0] * (TC_REC - 2)
         self.layout = torch.tensor(layout, dtype=torch.int64, device=device)
 
     @property
     def device(self) -> torch.device:
         return self.flat.device
+
+    @property
+    def math_flat(self) -> torch.Tensor:
+        """The weights in their math form (``flat`` without the bf16
+        fragment-ordered copies): what one pass of the network reads."""
+        return self.flat[: self.n_math]
 
     def record_ptr(self, index: int) -> int:
         """Device address of record ``index`` (stages 0.., then final)."""
@@ -174,6 +201,48 @@ class PackedNet:
         """Widest activation of the network (sizes the kernels' buffers)."""
         d = self.dims
         return max((self.w["init_w"].shape[1],) + tuple(d.cins) + tuple(d.block_channels))
+
+
+def _tc_products(math_w: Dict[str, torch.Tensor], dims: DenoiserDims) -> Dict[str, tuple]:
+    """The products ddim_sampler_kernel runs on the tensor cores, by the
+    name of their slot in the tensor-core table: ``(taps, W [taps*Ck, N])``
+    (taps 3: a k3 conv over Ck channels; 1: a dense product of depth Ck)."""
+    out = {}
+    for i in range(len(dims.block_channels)):
+        for r in ("r1", "r2"):
+            for s in ("w1", "w2"):
+                out[f"b{i}_{r}_{s}"] = (3, math_w[f"b{i}{r}_{s}"])
+        out[f"b{i}_wqkv"] = (1, math_w[f"b{i}_wqkv"])
+        out[f"b{i}_wo"] = (1, math_w[f"b{i}_wo"])
+        out[f"b{i}_wp"] = (3, math_w[f"b{i}_wp"])
+    out["final_w1"] = (3, math_w["final_w1"])
+    out["final_w2"] = (3, math_w["final_w2"])
+    return out
+
+
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def tc_fragments(W: torch.Tensor, taps: int) -> torch.Tensor:
+    """``W [taps*Ck, N]`` as the B operand of ``mma.sync.m16n8k16``, in the
+    order a warp loads it (``csrc/tc_blocks.cuh``): flat ``[KS, NP, 32, 8]``.
+
+    Each tap's Ck rows are padded with zero rows to a multiple of 16 (so a
+    k-step of 16 never spans two taps) and N with zero columns to a
+    multiple of 16; KS = taps * Ck16 / 16 k-steps, NP = N16 / 16 column
+    pairs. Lane ``4g + t`` of pair p at k-step s holds, for n-tile j = 0, 1
+    (column n = 16p + 8j + g), the four values W[16s + 2t + q*8 + h, n] in
+    the order (q, h) = (0, 0), (0, 1), (1, 0), (1, 1): registers b0 and b1
+    of n-tile j, one 16-byte load a lane for two n-tiles."""
+    K, N = W.shape
+    Ck = K // taps
+    Wp = W.new_zeros((taps, _up16(Ck), _up16(N)))
+    Wp[:, :Ck, :N] = W.reshape(taps, Ck, N)
+    KS, NP = taps * _up16(Ck) // 16, _up16(N) // 16
+    # k = 16s + 8q + 2t + h, n = 16p + 8j + g -> [s, p, g, t, j, q, h]
+    v = Wp.reshape(KS, 2, 4, 2, NP, 2, 8)
+    return v.permute(0, 4, 6, 2, 5, 1, 3).reshape(-1)
 
 
 # ---------------------------------------------------------------------------

@@ -16,7 +16,10 @@ kernel takes the multiplier's bits as a runtime argument, so its compiler
 cannot fold it and hoist the reps. :func:`mm_chain_apply` launches
 ``mm_chain_kernel`` (``csrc/microbench.cu``) for a CUDA tensor and runs
 :func:`plain_chain` for a CPU one; the pool stays dense (the product is
-what is timed), and any R is taken.
+what is timed), and any R is taken. Every form of the kernel runs on the
+tensor cores: the f32 form as five exact bf16 products, of
+:func:`split_square`'s hi / lo against :func:`split_pool`'s three parts of
+the float32 pool (the wrapper splits it, inside the call).
 
     python -m graspldm_tpu_torch.tools.bench_mm [R_total] [--device cpu]
 """
@@ -35,7 +38,8 @@ from ..flagship import resolve_device
 from . import aligned, bf16_bits, tool_parser
 
 __all__ = ["K", "N", "REPS", "MULT", "FORMS", "MM_CHAIN_KERNEL", "make_pool", "make_inputs",
-           "plain_chain", "mm_chain_apply", "bench", "line", "main"]
+           "split_square", "split_pool", "plain_chain", "mm_chain_apply", "bench", "line",
+           "main"]
 
 K, N = 2048, 128
 REPS = 12
@@ -62,6 +66,26 @@ def make_inputs(R: int, device=None, seed: int = 0) -> torch.Tensor:
     return torch.randn((R, K), generator=gen, device=dev).to(torch.bfloat16)
 
 
+def split_square(x: torch.Tensor):
+    """``x * x`` of bf16 ``x`` (exact in float32: at most 16 significant
+    bits) as two bf16 terms, ``hi + lo == x * x`` exactly: ``hi`` the
+    square rounded to bf16, ``lo`` the rest."""
+    sq = x.float() * x.float()
+    hi = sq.to(torch.bfloat16)
+    return hi, (sq - hi.float()).to(torch.bfloat16)
+
+
+def split_pool(pf: torch.Tensor) -> torch.Tensor:
+    """The float32 ``pf`` as three bf16 terms, ``[3, *pf.shape]``, with
+    ``p1 + p2 + p3 == pf`` exactly (each part the rest rounded to bf16; 8 + 8
+    + 8 significant bits hold float32's 24 wherever no part underflows
+    bf16's range, that is for |pf| above about 2^-110)."""
+    p1 = pf.to(torch.bfloat16)
+    r1 = pf - p1.float()
+    p2 = r1.to(torch.bfloat16)
+    return torch.stack([p1, p2, (r1 - p2.float()).to(torch.bfloat16)])
+
+
 def plain_chain(x: torch.Tensor, pf: torch.Tensor, pb: torch.Tensor, form: str,
                 reps: int = REPS) -> torch.Tensor:
     """The chain in plain PyTorch: float32 ``[R, N]``. A bf16 x bf16
@@ -76,10 +100,7 @@ def plain_chain(x: torch.Tensor, pf: torch.Tensor, pb: torch.Tensor, form: str,
         elif form == "bf16":
             s = (x * x).float() @ pb.float()
         elif form == "split":
-            xf = x.float()
-            sq = xf * xf
-            hi = sq.to(torch.bfloat16)
-            lo = (sq - hi.float()).to(torch.bfloat16)
+            hi, lo = split_square(x)
             s = hi.float() @ pb.float() + lo.float() @ pb.float()
         else:
             raise ValueError(f"form must be one of {FORMS}, got {form!r}")
@@ -105,18 +126,18 @@ def mm_chain_apply(x: torch.Tensor, pf: torch.Tensor, pb: torch.Tensor, form: st
                          f"{tuple(pf.shape)} / {pb.dtype} {tuple(pb.shape)}")
     if not on_cuda(x):
         return plain_chain(x, pf, pb, form, reps)
-    if Kx % 16:
-        raise ValueError(f"mm_chain_kernel takes K in steps of 16, got {Kx}")
+    if Kx % 32:
+        raise ValueError(f"mm_chain_kernel takes K in steps of 32, got {Kx}")
     if pf.device != x.device or pb.device != x.device:
         raise ValueError("x, pf and pb must lie on one device")
     from ..cuda_build import load_library
 
     lib = load_library()
-    x, pf, pb = aligned(x), aligned(pf), aligned(pb)
+    x, pool = aligned(x), aligned(split_pool(pf) if form == "f32" else pb)
     out = torch.empty((x.shape[0], N), dtype=torch.float32, device=x.device)
     P = ctypes.c_void_p
-    rc = lib.gl_mm_chain(FORM_CODE[form], P(x.data_ptr()), P(pf.data_ptr()), P(pb.data_ptr()),
-                         P(out.data_ptr()), x.shape[0], Kx, reps, bf16_bits(MULT),
+    rc = lib.gl_mm_chain(FORM_CODE[form], P(x.data_ptr()), P(pool.data_ptr()), P(out.data_ptr()),
+                         x.shape[0], Kx, reps, bf16_bits(MULT),
                          P(torch.cuda.current_stream(x.device).cuda_stream))
     check_launch(rc, "mm_chain_kernel")
     MM_CHAIN_KERNEL.launches += 1

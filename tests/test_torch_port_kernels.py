@@ -305,6 +305,77 @@ def test_entry_points_refuse_to_build_on_the_cpu_unasked(monkeypatch):
         make_batch_generate_from_parts(vae, ddm, diff)
 
 
+def _unfragment(frag: torch.Tensor, taps: int, Ck: int, N: int) -> torch.Tensor:
+    """The padded [taps * Ck16, N16] matrix a tc_fragments copy holds, read
+    back through the lane map csrc/tc_blocks.cuh loads it by: lane 4g + t of
+    column pair p at k-step s holds, for n-tile j, W[16s + 8q + 2t + h,
+    16p + 8j + g] at position 4j + 2q + h of its 8 values."""
+    ck16, n16 = (Ck + 15) // 16 * 16, (N + 15) // 16 * 16
+    KS, NP = taps * ck16 // 16, n16 // 16
+    out = torch.full((taps * ck16, n16), float("nan"))
+    vals = frag.float().reshape(KS, NP, 32, 8)
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        for v in range(8):
+            j, q, h = v // 4, (v // 2) % 2, v % 2
+            k = torch.arange(KS)[:, None] * 16 + 8 * q + 2 * t + h
+            n = torch.arange(NP)[None, :] * 16 + 8 * j + g
+            out[k, n] = vals[:, :, lane, v]
+    return out
+
+
+# (taps, Ck, N): the narrow first stage (the init conv emits L channels), the
+# flagship convs and projections, wqkv and wo, and widths off the 16 grid
+TC_SHAPES = [(3, 4, 4), (3, 4, 32), (3, 32, 64), (3, 128, 256), (3, 256, 256), (1, 4, 384),
+             (1, 128, 4), (3, 8, 16), (1, 24, 40)]
+
+
+@pytest.mark.parametrize("taps,Ck,N", TC_SHAPES)
+def test_tc_fragments_round_trip_to_the_math_form(taps, Ck, N):
+    """The fragment-ordered weights of ddim_sampler_kernel's tensor-core
+    products hold the math form bitwise where the lane map puts it, and
+    zeros in every padded row (each tap's Ck up to 16) and column (N up to
+    16); every position is written once."""
+    W = torch.randn(taps * Ck, N, generator=torch.Generator().manual_seed(taps * 1000 + Ck + N))
+    W = W.to(torch.bfloat16).float()
+    frag = sc.tc_fragments(W, taps)
+    ck16, n16 = (Ck + 15) // 16 * 16, (N + 15) // 16 * 16
+    assert frag.numel() == taps * ck16 * n16
+    got = _unfragment(frag, taps, Ck, N)
+    assert not torch.isnan(got).any()
+    padded = got.reshape(taps, ck16, n16)
+    assert torch.equal(padded[:, :Ck, :N].reshape(taps * Ck, N), W)
+    assert not padded[:, Ck:].any() and not padded[:, :, N:].any()
+
+
+@pytest.mark.parametrize("L", [4, 16])
+def test_bf16_pack_carries_the_tensor_core_table(nets, L):
+    """A bf16 PackedNet appends each tensor-core product's fragment-ordered
+    weights after the math form and points the layout's table at them; the
+    math form is unchanged, and a float32 pack has no table."""
+    math, dims = nets["den"][L]
+    f32 = sc.PackedNet(math, dims, torch.float32)
+    assert int(f32.layout[sc.N_TC]) == 0 and f32.n_math == f32.flat.numel()
+    w = sc.PackedNet(math, dims, torch.bfloat16)
+    assert torch.equal(w.math_flat, f32.flat.to(torch.bfloat16))
+    table = w.layout[int(w.layout[sc.N_TC]):].tolist()
+    n = len(dims.block_channels)
+    assert len(table) == (n + 1) * sc.TC_REC
+    names = [(f"b{i}{r}_{s}", 3) for i in range(n) for r in ("r1", "r2") for s in ("w1", "w2")]
+    slots = [(i * sc.TC_REC + sc.TC_SLOTS.index(f"{r}_{s}")) for i in range(n)
+             for r in ("r1", "r2") for s in ("w1", "w2")]
+    for i in range(n):
+        names += [(f"b{i}_wqkv", 1), (f"b{i}_wo", 1), (f"b{i}_wp", 3)]
+        slots += [i * sc.TC_REC + sc.TC_SLOTS.index(k) for k in ("wqkv", "wo", "wp")]
+    names += [("final_w1", 3), ("final_w2", 3)]
+    slots += [n * sc.TC_REC, n * sc.TC_REC + 1]
+    for (name, taps), slot in zip(names, slots):
+        want = sc.tc_fragments(w.w[name].float(), taps).to(torch.bfloat16)
+        off = table[slot]
+        assert off >= w.n_math and off % 8 == 0, name
+        assert torch.equal(w.flat[off: off + want.numel()], want), name
+
+
 def test_wrappers_refuse_other_devices(nets):
     """A tensor neither on the CPU nor on a CUDA card is refused: there is
     no path that quietly computes somewhere else."""
@@ -437,6 +508,32 @@ def test_sampler_kernel_matches_plain_on_card(cuda, nets, sampler, dtype):
     # x_0 is clipped to [-1, 1]; bf16 rounding flips recur over the steps
     tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0, atol=2.0 ** -4)
     torch.testing.assert_close(got, ref, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sampler", ["ddim", "ddpm"])
+@pytest.mark.parametrize("channels", [(8, 16), (16, 32)])
+def test_bf16_ddim_sampler_kernel_takes_narrow_models_on_card(cuda, channels, sampler):
+    """The tensor-core body of ddim_sampler_kernel<bf16> at widths off its
+    16-wide tiles (the init conv's 4 channels, 8-wide stages: zero-padded
+    K and N in the fragments, A read value by value) over a ragged BG,
+    against its plain version within chip_smoke.TOL_BF16_SAMPLER."""
+    torch.manual_seed(1)
+    ddm = GraspLatentDDM(block_channels=channels, dropout=None).eval()
+    dims = _denoiser_dims(ddm)
+    w = sc.PackedNet(pack_math_weights(ddm, dims), dims, torch.bfloat16, cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    BG, S = 37, 10
+    schedule = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
+    z_pc = torch.randn(BG, 3, dims.cond_dim, generator=g, device=cuda)
+    tables = cs.sampler_tables(w, schedule, compute_input_emb(w.aux, z_pc), S, sampler,
+                               "fixed_large")
+    x_T = torch.randn(BG, 4, generator=g, device=cuda)
+    noise = torch.randn(S, BG, 4, generator=g, device=cuda) if sampler == "ddpm" else None
+    got = cs.sampler_apply(w, x_T, *tables, noise)
+    torch.cuda.synchronize()
+    ref = cs.sampler_plain(w, x_T, *tables, noise, True, 1.0)
+    torch.testing.assert_close(got, ref, rtol=0, atol=2.0 ** -4)
 
 
 # EDM has no clip, so the limits are relative to the output's largest
@@ -724,3 +821,24 @@ def test_mm_chain_kernel_dense_pool_on_card(cuda, R, form):
     got = bench_mm.mm_chain_apply(x, pf, pb, form)
     plain = bench_mm.plain_chain(x, pf, pb, form)
     torch.testing.assert_close(got, plain, rtol=0, atol=2e-4 * plain.abs().max().item())
+
+
+# mm_chain_kernel's f32 form (five exact bf16 products on the tensor cores)
+# against the chain in float64 on a dense pool, beside cuBLAS's float32
+# products (the plain version, TF32 off) on the same inputs: within
+# chip_smoke.TOL_MM_DENSE of max|exact|, as against the plain version.
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [8192, 1021])
+def test_mm_chain_kernel_f32_against_float64_on_card(cuda, R):
+    x = bench_mm.make_inputs(R, cuda, 6)
+    pf = torch.randn((bench_mm.K, bench_mm.N), generator=torch.Generator(device=cuda)
+                     .manual_seed(7), device=cuda)
+    pb = pf.to(torch.bfloat16)
+    got = bench_mm.mm_chain_apply(x, pf, pb, "f32")
+    cublas = bench_mm.plain_chain(x, pf, pb, "f32")
+    exact = bench_mm.REPS * ((x.double() * x.double()) @ pf.double())
+    top = exact.abs().max().item()
+    err = (got.double() - exact).abs().max().item() / top
+    err_cublas = (cublas.double() - exact).abs().max().item() / top
+    print(f"R={R}: mm_chain_kernel f32 {err:.3e}, cuBLAS fp32 {err_cublas:.3e} of max|exact|")
+    assert err <= 2e-4, (err, err_cublas)

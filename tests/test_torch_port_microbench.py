@@ -225,3 +225,76 @@ def test_timeit_on_the_cpu():
     assert t > 0 and len(calls) == 5  # one warm-up
     with pytest.raises(ValueError, match="tensor"):
         timeit(lambda: None, iters=1)
+
+
+# ---------------------------------------------------------------------------
+# the exact bf16 splits behind mm_chain_kernel's f32 form on the tensor cores
+# ---------------------------------------------------------------------------
+
+
+def _magnitudes(shape, lo: int, hi: int, seed: int) -> torch.Tensor:
+    """float32 values of random sign and mantissa at every power of two from
+    2^lo to 2^hi."""
+    rng = np.random.default_rng(seed)
+    e = rng.integers(lo, hi + 1, size=shape)
+    m = rng.uniform(1.0, 2.0, size=shape) * rng.choice([-1.0, 1.0], size=shape)
+    return torch.from_numpy((m * np.exp2(e.astype(np.float64))).astype(np.float32))
+
+
+SQUARES = {
+    "normals": lambda: _torch_bf16(np.random.default_rng(7).standard_normal((R, jmm.K))),
+    # x^2 from 2^-100 to 2^100
+    "magnitudes": lambda: _magnitudes((R, 256), -50, 49, 8).to(torch.bfloat16),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SQUARES))
+def test_split_square_rebuilds_the_square_bitwise(case):
+    x = SQUARES[case]()
+    hi, lo = bench_mm.split_square(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    sq = x.float() * x.float()
+    assert torch.equal(hi.float() + lo.float(), sq)
+
+
+POOLS = {
+    "normals": lambda: torch.randn((jmm.K, jmm.N), generator=torch.Generator().manual_seed(9)),
+    "onehot": lambda: bench_mm.make_pool()[0],
+    "magnitudes": lambda: _magnitudes((jmm.K, jmm.N), -100, 100, 10),
+}
+
+
+@pytest.mark.parametrize("case", sorted(POOLS))
+def test_split_pool_rebuilds_the_pool_bitwise(case):
+    pf = POOLS[case]()
+    parts = bench_mm.split_pool(pf)
+    assert parts.shape == (3, *pf.shape) and parts.dtype == torch.bfloat16
+    p1, p2, p3 = parts.float()
+    assert torch.equal((p1 + p2) + p3, pf)
+    if case == "onehot":  # 1/128 is a bf16 value: the lower parts are zero
+        assert not p2.any() and not p3.any()
+
+
+@pytest.mark.parametrize("pool", ["onehot", "dense"])
+def test_five_split_products_match_the_jax_f32_form(pool):
+    """The f32 form as mm_chain_kernel computes it, hi*p1 + hi*p2 + hi*p3 +
+    lo*p1 + lo*p2 (each product exact; lo*p3 dropped), summed in float64,
+    against the JAX tool's f32 form (its make_kernel in interpret mode) at a
+    ragged R = 1021, within chip_smoke.TOL_MM (1e-5) of max|ref|."""
+    rows = 1021
+    (x,) = _inputs("mm", rows, seed=11)
+    pf = (bench_mm.make_pool()[0] if pool == "onehot"
+          else torch.randn((jmm.K, jmm.N), generator=torch.Generator().manual_seed(12)))
+    block = lambda a, b: pl.BlockSpec((a, b), lambda i: (0, 0))  # noqa: E731
+    fn = pl.pallas_call(jmm.make_kernel("f32"), grid=(1,),
+                        in_specs=[block(rows, jmm.K), block(jmm.K, jmm.N), block(jmm.K, jmm.N)],
+                        out_specs=block(rows, jmm.N),
+                        out_shape=jax.ShapeDtypeStruct((rows, jmm.N), jnp.float32),
+                        interpret=True)
+    want = np.asarray(fn(jnp.asarray(x, jnp.bfloat16), jnp.asarray(pf.numpy()),
+                         jnp.asarray(pf.numpy(), jnp.bfloat16)), np.float64)
+    hi, lo = (t.double() for t in bench_mm.split_square(_torch_bf16(x)))
+    p1, p2, p3 = bench_mm.split_pool(pf).double()
+    got = bench_mm.REPS * (hi @ (p1 + p2 + p3) + lo @ (p1 + p2))  # bf16(0.999) = 1: equal reps
+    top = float(np.abs(want).max())
+    assert float(np.abs(got.numpy() - want).max()) <= 1e-5 * top
