@@ -62,7 +62,11 @@ any phase fails (every phase runs; the failures are listed at the end):
    4 ``stage_kernel`` + ``final_kernel`` launches on the same operands, in
    float32 and bfloat16, at fpc BG = 4096 and 8192 (CFG), ppc BG = 1024
    and 2048 and a ragged BG = 1021, and once on a class-conditioned pack;
-   the three are timed at the main path's shapes;
+   the three are timed at the main path's shapes. Its float32 instance
+   runs its products on the tensor cores through the exact bf16 split and
+   is held against two controls on the same operands: its error within
+   ``SPLIT_VS_CUDA_CORES`` times the float32 stage chain's (the CUDA
+   cores), and a bf16 network's error above ``TOL_FP32``;
 8. the PVCNN2 encoder path: ``fps_kernel`` against its plain version
    (equal indices) at the four SA shapes of ``PVCNN2Encoder`` (N -> M =
    1024 -> 1024, 1024 -> 256, 256 -> 64, 64 -> 16) at B = 16 and 128, at a
@@ -105,9 +109,10 @@ any phase fails (every phase runs; the failures are listed at the end):
    ragged R = 1021, each timed beside its plain version, its one-rep time
    and one PyTorch library call (times the reps), after the SASS of every
    built library is read for tensor-core (HMMA) instructions: the three
-   forms of ``mm_chain_kernel``, ``bcast_chain_kernel`` matmul and the bf16
-   ``ddim_sampler_kernel`` issue them, every other kernel none, and no
-   kernel a TF32 one; then the main
+   forms of ``mm_chain_kernel``, ``bcast_chain_kernel`` matmul, the bf16
+   ``ddim_sampler_kernel`` and ``stage_kernel`` and both ``full_kernel``
+   instances issue them, every other kernel none, and no kernel a TF32
+   one; then the main
    path: each tool's timing function (the one its ``main()`` calls) at
    its defaults, its lines printed as ``main()`` prints them, every form's
    output held against its plain version.
@@ -207,6 +212,15 @@ TOL_BF16_EDM_STEP_MEAN = 2.0 ** -10.5  # mean error
 # below the spread; as above, the script fails unless the spread lies
 # above it.
 TOL_BF16_STEP_MEAN = {"ddim": 2.0 ** -19, "dpmpp": 2.0 ** -19, "churn": 2.0 ** -22}
+# full_kernel<float> runs its products on the tensor cores through the exact
+# bf16 split (csrc/tc_blocks.cuh). Its error against full_plain must stay
+# within this many times the error of the float32 stage chain (the same
+# function on the CUDA cores: stage_kernel<float> x 4 + final_kernel<float>)
+# on the same operands, the CUDA-core control; and a plain version with its
+# weights and stored activations rounded to bf16 must land above TOL_FP32
+# against full_plain, or TOL_FP32 would not tell a bf16 network from a
+# float32 one.
+SPLIT_VS_CUDA_CORES = 4.0
 # float32 end to end, card vs CPU: PVCNN (cuDNN vs CPU convolutions) and
 # the sampler's steps reorder sums; grasp entries are O(1).
 TOL_E2E = 1e-3
@@ -474,6 +488,29 @@ def final_macs(d) -> int:
 def full_macs(d) -> int:
     """Every stage and the final block for one row: ``full_kernel``'s work."""
     return sum(stage_macs(d, i) for i in range(len(d.block_channels))) + final_macs(d)
+
+
+def tc_macs(d) -> int:
+    """The multiply-adds of ``full_macs`` that the tensor-core network body
+    runs on the tensor cores (the k3 convs and projections, wqkv and wo);
+    the FiLM MLPs, the L x L scores and values and the head stay on the CUDA
+    cores."""
+    L, n = d.seq_len, 0
+    for C, Co in zip(d.cins, d.block_channels):
+        n += 4 * L * 3 * C * C + L * C * 3 * HD + L * HD * C + L * 3 * C * Co
+    return n + 2 * L * 3 * d.block_channels[-1] ** 2
+
+
+def full_bound(w, bg: int, nbytes_: int) -> dict:
+    """``full_kernel``'s bound over ``bg`` rows. bf16: every product at the
+    bf16 peak. float32: the least over the two ways the card can compute the
+    float32 function (``mb_bound``): every product as float32 FMAs, or the
+    tensor-core products as the six exact bf16 products of the split with
+    the rest as float32 FMAs."""
+    flops, tc = 2.0 * full_macs(w.dims) * bg, 2.0 * tc_macs(w.dims) * bg
+    if w.dtype == torch.bfloat16:
+        return bound(flops, nbytes_, "bf16")
+    return mb_bound([{"fp32": flops}, {"bf16": 6 * tc, "fp32": flops - tc}], nbytes_, PEAK_FLOPS)
 
 
 def net_macs(d) -> int:
@@ -924,7 +961,10 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
     operands, for each ``(config, label, denoiser)`` of ``nets``: an
     unconditioned denoiser in float32 and bfloat16 at a ragged BG and at
     the guided main path's row counts (timed there), a conditioned one (it
-    runs float32) at the CFG row count."""
+    runs float32) at the CFG row count. Both dtypes run their products on
+    the tensor cores, float32 through the exact bf16 split; float32 is held
+    against two controls on the same operands (``SPLIT_VS_CUDA_CORES``):
+    the stage chain's error (the CUDA cores) and a bf16 network's."""
     from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
     from graspldm_tpu_torch.models.stacked_cuda import PackedNet, full_apply, full_plain
     from graspldm_tpu_torch.models.stacked_denoiser import pack_math_weights
@@ -935,10 +975,15 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
         math_w = pack_math_weights(ddm, dims)
         dts = (torch.float32,) if ddm.conditioning else (torch.float32, torch.bfloat16)
         bgs = FULL_BG[config][1:] if ddm.conditioning else (RAGGED_BG,) + FULL_BG[config]
+        w_bf16 = PackedNet(math_w, dims, torch.bfloat16, dev)
         for dt in dts:
-            w = PackedNet(math_w, dims, dt, dev)
+            w = PackedNet(math_w, dims, dt, dev) if dt == torch.float32 else w_bf16
             tag = tag_of(dt)
             tol = TOL_FP32 if tag == "fp32" else TOL_BF16
+            if tag == "fp32":
+                packing = split_packing_ms(math_w, dims, dev)
+                log(f"[kernels] float32 {label} packing: {packing['pack_ms']:.3f} ms, of which "
+                    f"the split's fragment copies {packing['split_ms']:.3f} ms (host clock)")
             for bg in bgs:
                 log(f"[kernels] full_kernel {label} {tag}, L={dims.seq_len}, BG={bg}")
                 x, emb = full_operands(w, bg, gen, dev)
@@ -950,22 +995,79 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
                 run.compare(f"full_kernel {label} BG={bg} vs the stage chain", got, chain, tol)
                 bitwise = bool(torch.equal(got, chain))
                 log(f"  bitwise equal to the stage chain: {bitwise}")
+                checked = dict(BG=bg, what=label, max_abs_err=err, bitwise_equal_chain=bitwise)
+                if tag == "fp32":
+                    checked.update(split_controls(run, f"full_kernel {label} BG={bg}", w_bf16, x,
+                                                  emb, got, ref, chain))
                 r = run.record("full_kernel", config, dims.seq_len, FULL_BG[config][0], None, tag,
                                what="one denoiser evaluation (guided samplers)")
-                r.setdefault("err_checked_at", []).append(
-                    dict(BG=bg, what=label, max_abs_err=err, bitwise_equal_chain=bitwise))
+                r.setdefault("err_checked_at", []).append(checked)
                 if bg not in FULL_BG[config] or ddm.conditioning:
                     continue
                 k_ms = cuda_ms(lambda: full_apply(w, x, emb), 10)
                 p_ms = cuda_ms(lambda: full_plain(w, x, emb), 3)
                 c_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
-                b = bound(2.0 * full_macs(dims) * bg, nbytes(x, emb, ref, w.math_flat, w.layout), tag)
+                b = full_bound(w, bg, nbytes(x, emb, ref, w.math_flat, w.layout))
+                way = b.get("bound_type", "bytes")
+                way = "" if way == "bytes" else f": {way}"
                 log(f"  full_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, chain of 5 "
-                    f"launches {c_ms:.3f} ms; bound {b['bound_ms']:.4f} ms")
+                    f"launches {c_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}{way})")
                 timed = dict(BG=bg, ms=k_ms, plain_ms=p_ms, chain_ms=c_ms, **b)
                 r.setdefault("timed_at", []).append(timed)
                 if bg == FULL_BG[config][0]:
                     r.update(err=err, ms=k_ms, plain_ms=p_ms, chain_ms=c_ms, **b)
+
+
+def split_packing_ms(math_w, dims, dev, reps: int = 5) -> dict:
+    """Host milliseconds of a float32 ``PackedNet`` (every generation call
+    packs its denoiser) and of the part of it that builds the exact split's
+    fragment-ordered copies, which only ``full_kernel<float>`` reads."""
+    from graspldm_tpu_torch.models import stacked_cuda as sc
+
+    def ms(fn) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    products = sc._tc_products(math_w, dims).values()
+    return dict(pack_ms=ms(lambda: sc.PackedNet(math_w, dims, torch.float32, dev)),
+                split_ms=ms(lambda: [sc._tc_copy(v, taps, torch.float32) for taps, v in products]))
+
+
+def split_controls(run: Run, name: str, w_bf16, x, emb, got, ref, chain) -> dict:
+    """The float32 ``full_kernel``'s two controls on its own operands: its
+    error against ``full_plain`` beside the float32 stage chain's (the same
+    function on the CUDA cores), within ``SPLIT_VS_CUDA_CORES`` of it; and a
+    bf16 network (``full_plain`` of the bf16 pack on the inputs rounded to
+    bf16), which must land above ``TOL_FP32``."""
+    from graspldm_tpu_torch.models.stacked_cuda import full_plain
+
+    top = max(1.0, ref.abs().max().item())
+    err = (got - ref).abs().max().item()
+    chain_err = (chain - ref).abs().max().item()
+    ratio = err / max(chain_err, 1e-30)
+    apart = (got - chain).abs().max().item() / top
+    bf16 = full_plain(w_bf16, x.to(torch.bfloat16), emb.to(torch.bfloat16)).float()
+    bf16_err = (bf16 - ref).abs().max().item()
+    ok = ratio <= SPLIT_VS_CUDA_CORES
+    caught = bf16_err > TOL_FP32 * top
+    log(f"  CUDA-core control: {name} (tensor cores, exact bf16 split) {err:.3e} against "
+        f"full_plain, the fp32 stage chain (CUDA cores) {chain_err:.3e}: {ratio:.2f}x (limit "
+        f"{SPLIT_VS_CUDA_CORES:g}x) -> {'ok' if ok else 'FAIL'}; kernel and chain {apart:.3e} of "
+        f"max(1, max|ref|) apart")
+    log(f"  bf16 control: a bf16 network against full_plain {bf16_err:.3e} (rel "
+        f"{bf16_err / top:.3e}), above TOL_FP32's {TOL_FP32 * top:.3e}: "
+        f"{'yes' if caught else 'NO'}")
+    if not ok:
+        run.failures.append(f"{name}: {ratio:.2f}x the CUDA-core chain's error")
+    if not caught:
+        run.failures.append(f"{name}: TOL_FP32 would pass a bf16 network")
+    return dict(cuda_core_chain_err=chain_err, vs_cuda_core_chain=ratio, bf16_network_err=bf16_err,
+                rel_apart_from_chain=apart)
 
 
 # ---------------------------------------------------------------------------
@@ -2092,13 +2194,15 @@ def sfu_rate(dev) -> float:
 # cores; every other kernel must issue no HMMA, and none a TF32 one
 TENSOR_CORE_KERNELS = {("mm_chain_kernel", "f32"), ("mm_chain_kernel", "bf16"),
                        ("mm_chain_kernel", "split"), ("bcast_chain_kernel", "matmul"),
-                       ("ddim_sampler_kernel", "bf16")}
+                       ("ddim_sampler_kernel", "bf16"), ("full_kernel", "bf16"),
+                       ("full_kernel", "fp32"), ("stage_kernel", "bf16")}
 
 
 def sass_check(run: Run) -> None:
     """``cuobjdump -sass`` of every built library: the kernels of
     TENSOR_CORE_KERNELS issue HMMA, every other kernel (the float32
-    ``ddim_sampler_kernel`` among them) none, and no kernel a TF32 HMMA.
+    ``ddim_sampler_kernel`` and ``stage_kernel``, ``final_kernel`` among
+    them) none, and no kernel a TF32 HMMA.
     Instances are named by their template argument (a micro-benchmark
     kernel's form, or bf16 / fp32)."""
     from graspldm_tpu_torch.cuda_build import library_path, nvcc_path

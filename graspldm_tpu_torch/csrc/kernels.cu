@@ -15,18 +15,26 @@
 // trajectory: no activation ever goes to device memory between ops or
 // steps), and reads each weight once per R rows.
 //
-// stage_kernel, final_kernel and the float32 sampler run every product on
-// the CUDA cores in fp32 (resnet1d_blocks.cuh: one vector load of a weight
-// row reused over a 4-token register tile). The bf16 ddim_sampler_kernel
-// runs its convs, projections and the attention's wqkv / wo products on the
-// tensor cores (mma.sync.m16n8k16, float32 accumulators; tc_blocks.cuh):
+// The bf16 ddim_sampler_kernel and the bf16 stage_kernel run their convs,
+// projections and the attention's wqkv / wo products on the tensor cores
+// (mma.sync.m16n8k16, float32 accumulators, 512 threads; tc_blocks.cuh):
 // the block's R*L tokens are the product's M, A fragments come from the
 // activations in shared memory through ldmatrix, B from a fragment-ordered
-// bf16 copy of the weights made at packing time. Its rounding points are
-// the CUDA-core body's; only the order of the float32 sums differs. The
-// float32 instantiation keeps the CUDA-core body: a float32 product on the
-// tensor cores needs the exact bf16 split of B (mm_chain_kernel's f32 form,
-// microbench.cu, is that split's prototype). wgmma and TMA are later work.
+// bf16 copy of the weights made at packing time, found through the
+// layout's tensor-core table (stage_kernel takes the layout and its stage
+// index for it). Their rounding points are the CUDA-core body's; only the
+// order of the float32 sums differs. On the main path stage_kernel<bf16>
+// runs the decoder's stages at L = 16, where its plan holds 10, 9, 7 and 6
+// rows (M = 160, 144, 112 and 96 tokens: 5, 4.5, 3.5 and 3 warp units of
+// 32 tokens, which go round the 16 warps); each product's staging copy
+// fits the stage's dead QKV buffer. A decode's 4 launches at BG = 4096 take
+// 2.61-2.63 ms against 9.62-9.66 on the CUDA cores (chip_smoke.py, H100
+// 80GB HBM3, 700 W); the bound is 0.071 ms (bf16 peak).
+// final_kernel and the float32 stage_kernel and sampler keep the CUDA-core
+// body (resnet1d_blocks.cuh: one vector load of a weight row reused over a
+// 4-token register tile, fp32 FMAs); the float32 stage chain is the
+// CUDA-core control of full_kernel<float>'s exact bf16 split (full_net.cu).
+// wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
 // interface, loaded with ctypes; see graspldm_tpu_torch/cuda_build.py).
@@ -40,14 +48,18 @@ namespace {
 // kernels
 // ---------------------------------------------------------------------------
 
+// stage `stage` of the network: record `stage` of the layout `net` and, for
+// bf16, its entries of the tensor-core table
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(sizeof(T) == 2 ? kTcThreads : kThreads)
 stage_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restrict__ Wf,
-             const long long* __restrict__ rec, T* __restrict__ out, int BG, int L, int C,
-             int Cout, int E, int Ce, int G, int R) {
+             const long long* __restrict__ net, int stage, T* __restrict__ out, int BG, int L,
+             int C, int Cout, int E, int Ce, int G, int R) {
+  constexpr bool TC = sizeof(T) == 2;
   extern __shared__ __align__(16) char smem[];
   const Bufs<T> b = carve<T>(smem, stage_plan(L, C, Cout, E, G), R);
-  const int row0 = blockIdx.x * R;
+  const long long* rec = net + NET_HDR + stage * REC_SIZE;
+  const int row0 = blockIdx.x * R, tc = stage * TC_REC;
   const int W = L * C;
   for (int idx = threadIdx.x; idx < R * W; idx += blockDim.x) {
     const int r = idx / W;
@@ -55,10 +67,14 @@ stage_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
   }
   emb_sum_rows(emb, b.ESUM, row0, R, BG, E, Ce);
   __syncthreads();
-  resblock(b, b.X, R, L, C, E, Ce, G, Wf, rec + R_RES1);
-  resblock(b, b.X, R, L, C, E, Ce, G, Wf, rec + R_RES2);
-  attention(b, b.X, R, L, C, Wf, rec);
-  proj(b.X, b.OUT, R, L, C, Cout, Wf, rec);
+  resblock(b, b.X, R, L, C, E, Ce, G, Wf, rec + R_RES1,
+           piece_products<T, TC>(b, b.OUT, Wf, net, tc + T_R1, PIECE_RES));
+  resblock(b, b.X, R, L, C, E, Ce, G, Wf, rec + R_RES2,
+           piece_products<T, TC>(b, b.OUT, Wf, net, tc + T_R2, PIECE_RES));
+  attention(b, b.X, R, L, C, Wf, rec,
+            piece_products<T, TC>(b, b.OUT, Wf, net, tc + T_ATTN, PIECE_ATTN));
+  proj(b.X, b.OUT, R, L, C, Cout, Wf, rec,
+       piece_products<T, TC>(b, b.OUT, Wf, net, tc + T_PROJ, PIECE_PROJ));
   const int Wo = L * Cout;
   for (int idx = threadIdx.x; idx < R * Wo; idx += blockDim.x)
     if (row0 + idx / Wo < BG) out[(size_t)row0 * Wo + idx] = b.OUT[idx];
@@ -127,10 +143,12 @@ ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embi
 }
 
 template <typename T>
-int launch_stage(const void* x, const void* emb, const void* w, const long long* rec, void* out,
-                 int BG, int L, int C, int Cout, int E, int Ce, int G, cudaStream_t st) {
-  return launch_rows<T>(stage_kernel<T>, stage_plan(L, C, Cout, E, G), BG, st, (const T*)x,
-                        (const T*)emb, (const T*)w, rec, (T*)out, BG, L, C, Cout, E, Ce, G);
+int launch_stage(const void* x, const void* emb, const void* w, const long long* net, int stage,
+                 void* out, int BG, int L, int C, int Cout, int E, int Ce, int G,
+                 cudaStream_t st) {
+  return launch_rows<T, sizeof(T) == 2 ? kTcThreads : kThreads>(
+      stage_kernel<T>, stage_plan(L, C, Cout, E, G), BG, st, (const T*)x, (const T*)emb,
+      (const T*)w, net, stage, (T*)out, BG, L, C, Cout, E, Ce, G);
 }
 
 template <typename T>
@@ -160,11 +178,12 @@ int launch_ddim(const float* xT, const float* embin, const float* trows, const f
 extern "C" {
 
 int gl_stage_forward(int dtype, const void* x, const void* emb, const void* w,
-                     const long long* rec, void* out, int BG, int L, int C, int Cout, int E,
-                     int Ce, int G, void* stream) {
+                     const long long* net, int stage, void* out, int BG, int L, int C, int Cout,
+                     int E, int Ce, int G, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_stage<float>(x, emb, w, rec, out, BG, L, C, Cout, E, Ce, G, st);
-  return launch_stage<__nv_bfloat16>(x, emb, w, rec, out, BG, L, C, Cout, E, Ce, G, st);
+  if (dtype == 0)
+    return launch_stage<float>(x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce, G, st);
+  return launch_stage<__nv_bfloat16>(x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce, G, st);
 }
 
 int gl_final_forward(int dtype, const void* x, const void* emb, const void* w,

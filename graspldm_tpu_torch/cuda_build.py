@@ -41,8 +41,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # source -> {C entry: argtypes}
 _SOURCES = {
     "kernels.cu": {
-        # dtype, x, emb, w, rec, out, BG, L, C, Cout, E, Ce, G, stream
-        "gl_stage_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        # dtype, x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce, G, stream
+        "gl_stage_forward": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         # dtype, x, emb, w, rec, out, BG, L, C, E, Ce, G, stream
         "gl_final_forward": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # dtype, xT, embin, trows, coefs, noise, w, net, out, BG, S, L, E, Ce, G,

@@ -24,9 +24,14 @@ built from ``csrc/resnet1d_blocks.cuh``:
   runs the last stage's projection, the final ResnetBlock and the head.
 
 All are generic over L (4 for the denoiser, 16 for the VAE decoder) and the
-stage widths, and take float32 or bfloat16 activations and weights. What
-bounds them on the H100 and what the design does about it is in the notes
-at the top of ``csrc/kernels.cu``, ``csrc/full_net.cu`` and ``csrc/hybrid.cu``.
+stage widths, and take float32 or bfloat16 activations and weights.
+``full_kernel`` (both dtypes) and the bf16 ``stage_kernel`` run their
+products on the tensor cores from the fragment-ordered copies
+(:func:`tc_fragments`) that :class:`PackedNet` appends after the math form;
+float32 through the exact bf16 split (:func:`bf16_parts`). What bounds them
+on the H100 and what the design does about it is in the notes at the top of
+``csrc/kernels.cu``, ``csrc/full_net.cu``, ``csrc/tc_blocks.cuh`` and
+``csrc/hybrid.cu``.
 
 Beside each kernel is its plain PyTorch version (``stage_plain``,
 ``final_plain``, ``full_plain``, ``hybrid_stage_plain``,
@@ -58,6 +63,7 @@ __all__ = [
     "XLA_ATTENTION",
     "PackedNet",
     "tc_fragments",
+    "bf16_parts",
     "stage_plain",
     "final_plain",
     "full_plain",
@@ -75,7 +81,7 @@ __all__ = [
 # int64 record layout read by csrc/resnet1d_blocks.cuh (R_* / S_* / N_*)
 REC_SIZE = 40
 NET_HDR = 8
-N_TC = 4  # header slot: where the tensor-core table starts in the layout (0: none)
+N_TC = 4  # header slot: where the tensor-core table starts in the layout
 # the tensor-core table (csrc/tc_blocks.cuh, T_*): per stage, the offsets of
 # the fragment-ordered copies of its products; then the final block's two
 TC_SLOTS = ("r1_w1", "r1_w2", "r2_w1", "r2_w2", "wqkv", "wo", "wp")
@@ -119,6 +125,15 @@ class PackedNet:
     that run in plain PyTorch around the kernels, a conditioned denoiser's
     class / region embedding weights included. ``device=None`` packs on
     the device of ``math_w``'s tensors.
+
+    After the math form (``math_flat``), ``flat`` holds each tensor-core
+    product's weights once more, fragment-ordered (:func:`tc_fragments`),
+    and the layout a table of their offsets (``layout[N_TC]``, one record
+    of ``TC_REC`` a stage and one for the final block): in bf16 one copy a
+    product; in float32 the three exact bf16 parts of the weight
+    (:func:`bf16_parts`), one whole copy after another (the part stride is
+    the copy's length, which the kernel computes from the product's shape),
+    their bf16 bits two to a float32 element.
     """
 
     def __init__(self, math_w: Dict[str, torch.Tensor], dims: DenoiserDims,
@@ -140,17 +155,19 @@ class PackedNet:
             pad = (-flat.numel()) % 8
             chunks += [flat, flat.new_zeros(pad)]
             n += flat.numel() + pad
-        # bf16: the tensor-core products' weights once more, fragment-ordered
-        # (tc_fragments), after the math form; ddim_sampler_kernel reads them
+        # the tensor-core products' weights once more, fragment-ordered
+        # (tc_fragments), after the math form: bf16 one copy a product;
+        # float32 its three exact bf16 parts (bf16_parts), one whole copy
+        # after another, their bf16 bits two to a float32 element
         self.n_math = n
-        tc = {}
-        if dtype == torch.bfloat16:
-            for k, (taps, v) in _tc_products(math_w, dims).items():
-                tc[k] = n
-                frag = tc_fragments(v, taps)
-                chunks.append(frag)
-                n += frag.numel()
-        self.flat = torch.cat(chunks).to(device=device, dtype=dtype)
+        tc, frags = {}, []
+        for k, (taps, v) in _tc_products(math_w, dims).items():
+            frag = _tc_copy(v, taps, dtype)
+            tc[k] = n
+            frags.append(frag)
+            n += frag.numel() // (2 if dtype == torch.float32 else 1)
+        self.flat = torch.cat([torch.cat(chunks).to(device=device, dtype=dtype),
+                               torch.cat(frags).to(device).view(dtype)])
         self.w = {
             k: self.flat[offsets[k]: offsets[k] + v.numel()].view(v.shape)
             for k, v in math_w.items() if k in offsets
@@ -171,11 +188,10 @@ class PackedNet:
         rec += [offsets[f"final_{s}"] for s in RES_SLOTS]
         rec += [offsets["final_fw"], offsets["final_fb"]]
         layout += rec + [0] * (REC_SIZE - len(rec))
-        if tc:
-            layout[N_TC] = len(layout)
-            for i in range(len(dims.block_channels)):
-                layout += [tc[f"b{i}_{s}"] for s in TC_SLOTS] + [0] * (TC_REC - len(TC_SLOTS))
-            layout += [tc["final_w1"], tc["final_w2"]] + [0] * (TC_REC - 2)
+        layout[N_TC] = len(layout)
+        for i in range(len(dims.block_channels)):
+            layout += [tc[f"b{i}_{s}"] for s in TC_SLOTS] + [0] * (TC_REC - len(TC_SLOTS))
+        layout += [tc["final_w1"], tc["final_w2"]] + [0] * (TC_REC - 2)
         self.layout = torch.tensor(layout, dtype=torch.int64, device=device)
 
     @property
@@ -184,7 +200,7 @@ class PackedNet:
 
     @property
     def math_flat(self) -> torch.Tensor:
-        """The weights in their math form (``flat`` without the bf16
+        """The weights in their math form (``flat`` without the
         fragment-ordered copies): what one pass of the network reads."""
         return self.flat[: self.n_math]
 
@@ -204,9 +220,10 @@ class PackedNet:
 
 
 def _tc_products(math_w: Dict[str, torch.Tensor], dims: DenoiserDims) -> Dict[str, tuple]:
-    """The products ddim_sampler_kernel runs on the tensor cores, by the
-    name of their slot in the tensor-core table: ``(taps, W [taps*Ck, N])``
-    (taps 3: a k3 conv over Ck channels; 1: a dense product of depth Ck)."""
+    """The products the tensor-core network bodies run on the tensor cores
+    (``csrc/tc_blocks.cuh``), by the name of their slot in the tensor-core
+    table: ``(taps, W [taps*Ck, N])`` (taps 3: a k3 conv over Ck channels;
+    1: a dense product of depth Ck)."""
     out = {}
     for i in range(len(dims.block_channels)):
         for r in ("r1", "r2"):
@@ -218,6 +235,32 @@ def _tc_products(math_w: Dict[str, torch.Tensor], dims: DenoiserDims) -> Dict[st
     out["final_w1"] = (3, math_w["final_w1"])
     out["final_w2"] = (3, math_w["final_w2"])
     return out
+
+
+def bf16_parts(x: torch.Tensor) -> torch.Tensor:
+    """The exact three-part bf16 split of a float32 tensor, ``[3,
+    *x.shape]`` bf16 with ``p1 + p2 + p3 == x`` exactly: ``p1 = bf16(x)``,
+    ``p2 = bf16(x - p1)``, ``p3 = bf16(x - p1 - p2)`` (8 + 8 + 8
+    significant bits hold float32's 24 wherever no part underflows bf16's
+    range, that is for |x| above about 2^-110). The float32 tensor-core
+    products split their weights so at packing time and their activations
+    so in the kernel (``csrc/tc_blocks.cuh`` ``split3``), and run the six
+    bf16 products ``a_i * w_j`` with ``i + j <= 4``."""
+    x = x.float()
+    p1 = x.to(torch.bfloat16)
+    r1 = x - p1.float()
+    p2 = r1.to(torch.bfloat16)
+    return torch.stack([p1, p2, (r1 - p2.float()).to(torch.bfloat16)])
+
+
+def _tc_copy(v: torch.Tensor, taps: int, dtype: torch.dtype) -> torch.Tensor:
+    """A product's fragment-ordered copy in a pack of ``dtype``, flat bf16:
+    its fragments (bf16), or the fragments' three exact bf16 parts one
+    whole copy after another (float32). Splitting the fragments is
+    splitting each part's fragments, as the split is elementwise and the
+    padding zero, in a third of the launches."""
+    frag = tc_fragments(v, taps)
+    return frag.to(torch.bfloat16) if dtype == torch.bfloat16 else bf16_parts(frag).reshape(-1)
 
 
 def _up16(n: int) -> int:
@@ -408,9 +451,9 @@ def stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor) -> tor
     _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
     out = torch.empty((BG, L * Cout), dtype=w.dtype, device=x.device)
     rc = load_library().gl_stage_forward(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat),
-        ctypes.c_void_p(w.record_ptr(i)), _ptr(out), BG, L, C, Cout, d.emb_dim,
-        d.cond_channels, d.groups, ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
+        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), i, _ptr(out), BG,
+        L, C, Cout, d.emb_dim, d.cond_channels, d.groups,
+        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     check_launch(rc, "stage_kernel")
     STAGE_KERNEL.launches += 1

@@ -35,6 +35,7 @@ import torch
 from ..cuda_build import KernelCounter, check_launch, on_cuda
 from ..utils.profiling import device_line, timeit
 from ..flagship import resolve_device
+from ..models.stacked_cuda import bf16_parts as split_pool  # the pool's exact bf16 split
 from . import aligned, bf16_bits, tool_parser
 
 __all__ = ["K", "N", "REPS", "MULT", "FORMS", "MM_CHAIN_KERNEL", "make_pool", "make_inputs",
@@ -73,17 +74,6 @@ def split_square(x: torch.Tensor):
     sq = x.float() * x.float()
     hi = sq.to(torch.bfloat16)
     return hi, (sq - hi.float()).to(torch.bfloat16)
-
-
-def split_pool(pf: torch.Tensor) -> torch.Tensor:
-    """The float32 ``pf`` as three bf16 terms, ``[3, *pf.shape]``, with
-    ``p1 + p2 + p3 == pf`` exactly (each part the rest rounded to bf16; 8 + 8
-    + 8 significant bits hold float32's 24 wherever no part underflows
-    bf16's range, that is for |pf| above about 2^-110)."""
-    p1 = pf.to(torch.bfloat16)
-    r1 = pf - p1.float()
-    p2 = r1.to(torch.bfloat16)
-    return torch.stack([p1, p2, (r1 - p2.float()).to(torch.bfloat16)])
 
 
 def plain_chain(x: torch.Tensor, pf: torch.Tensor, pb: torch.Tensor, form: str,

@@ -352,12 +352,12 @@ def test_tc_fragments_round_trip_to_the_math_form(taps, Ck, N):
 def test_bf16_pack_carries_the_tensor_core_table(nets, L):
     """A bf16 PackedNet appends each tensor-core product's fragment-ordered
     weights after the math form and points the layout's table at them; the
-    math form is unchanged, and a float32 pack has no table."""
+    math form is unchanged (a float32 pack's table, of the exact bf16 split,
+    is held in test_torch_port_split.py)."""
     math, dims = nets["den"][L]
     f32 = sc.PackedNet(math, dims, torch.float32)
-    assert int(f32.layout[sc.N_TC]) == 0 and f32.n_math == f32.flat.numel()
     w = sc.PackedNet(math, dims, torch.bfloat16)
-    assert torch.equal(w.math_flat, f32.flat.to(torch.bfloat16))
+    assert torch.equal(w.math_flat, f32.math_flat.to(torch.bfloat16))
     table = w.layout[int(w.layout[sc.N_TC]):].tolist()
     n = len(dims.block_channels)
     assert len(table) == (n + 1) * sc.TC_REC
@@ -407,6 +407,17 @@ def cuda():
 # sum next to a rounding boundary may round one ulp the other way in one of
 # the two and move what follows by as much again (4 ulps of the output)
 TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=0, atol=2.0 ** -5)}
+
+
+# float32 full_kernel (the exact bf16 split on the tensor cores) against the
+# float32 stage chain (the CUDA cores) on the same operands: its error
+# against full_plain within this many times the chain's (chip_smoke.py's
+# limit), and the two within SPLIT_VS_CHAIN of max(1, max|ref|) of each
+# other (chip_smoke.py reads them 1.7e-6 to 2.7e-6 of it apart on the card;
+# tools/kernel_variants.py reads a split that drops the third activation
+# part 1.8e-5 to 6.9e-5 of it from full_plain)
+SPLIT_VS_CUDA_CORES = 4.0
+SPLIT_VS_CHAIN = 5e-6
 
 
 def _rel(tol, ref):
@@ -465,8 +476,13 @@ def test_hybrid_kernels_match_plain_on_card(cuda, nets, dtype):
 def test_full_kernel_matches_plain_and_the_stage_chain_on_card(cuda, nets, dtype, L):
     """``full_kernel`` (one launch) against ``full_plain`` and against the
     chain of 4 ``stage_kernel`` + ``final_kernel`` launches on the same
-    operands, at the fpc and ppc denoisers with a ragged row count. Each
-    row is reduced in the same order in both kernels: bitwise equal."""
+    operands, at the fpc and ppc denoisers with a ragged row count.
+    ``full_kernel`` runs its products on the tensor cores (float32 through
+    the exact bf16 split), the chain's float32 stages and its final block on
+    the CUDA cores, so the two sum in another order: bf16 within its limit
+    of the chain; float32 within ``SPLIT_VS_CUDA_CORES`` of the chain's
+    error against ``full_plain``, and within ``SPLIT_VS_CHAIN`` of the
+    chain itself (a split that lost float32 precision fails both)."""
     math, dims = nets["den"][L]
     w = sc.PackedNet(math, dims, dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(12)
@@ -484,7 +500,14 @@ def test_full_kernel_matches_plain_and_the_stage_chain_on_card(cuda, nets, dtype
     ref = sc.full_plain(w, x, emb)
     assert got.shape == (BG, dims.seq_len) and got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), **_rel(TOLS[dtype], ref))
-    assert torch.equal(got, chain)
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), chain.float(), **_rel(TOLS[dtype], chain))
+        return
+    top = max(1.0, ref.abs().max().item())
+    err, chain_err = ((t - ref).abs().max().item() for t in (got, chain))
+    apart = (got - chain).abs().max().item()
+    assert err <= SPLIT_VS_CUDA_CORES * chain_err, (err, chain_err)
+    assert apart <= SPLIT_VS_CHAIN * top, apart
 
 
 @pytest.mark.cuda
