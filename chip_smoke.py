@@ -27,7 +27,15 @@ any phase fails (every phase runs; the failures are listed at the end):
    over their first few chained steps against their plain steps at fpc
    (BG = 4096) and ppc (BG = 1024), both also at a ragged BG = 1021, timed
    per launch at BG = 4096 / 1024, and their whole chains (one launch per
-   step) against the whole-trajectory kernels at the main paths' shapes;
+   step) against the whole-trajectory kernels at the main paths' shapes.
+   The float32 churn kernels run their products on the tensor cores
+   through the exact bf16 split (the bf16 ones on the CUDA cores); the
+   float32 ``churn_step_kernel`` is held against two controls on one
+   mid-trajectory step at fpc and ppc: its error within
+   ``SPLIT_VS_CUDA_CORES`` times that of the same step through the float32
+   stage chain (the CUDA cores), and a bf16 network's error above
+   ``TOL_FP32``; the float32 pack (which builds the split's copies) is
+   timed beside the float32 churn calls;
 4. the DDIM main path: the full-width fpc flagship (random weights from a
    seeded ``torch.Generator``), ``ldm_generate`` for 4 clouds x 1024
    points, 1024 grasps each, 100 DDIM steps, bf16 kernels (twice: the first
@@ -54,8 +62,9 @@ any phase fails (every phase runs; the failures are listed at the end):
    flagship with success guidance (DDIM 100) and the EDM fpc flagship with
    success guidance (DPM++ 32); the region-conditioned EDM ppc flagship
    (128 region points) with ``cfg_scale=2`` (DPM++ 32, one cloud x 1024
-   grasps); each call twice, its wall time split into denoiser launches,
-   guidance VJPs and the rest; and 3 requests with a ``cls`` field to a
+   grasps) and unguided with churn 100 (one float32
+   ``churn_sampler_kernel`` launch); each call twice, its wall time split
+   into denoiser launches, guidance VJPs and the rest; and 3 requests with a ``cls`` field to a
    class-conditioned ``GraspServer``; the success-guided calls take the
    decoder's VJP in bf16, as the JAX package does. Before the main paths,
    ``full_kernel`` is held against ``full_plain`` and against the chain of
@@ -110,9 +119,12 @@ any phase fails (every phase runs; the failures are listed at the end):
    and one PyTorch library call (times the reps), after the SASS of every
    built library is read for tensor-core (HMMA) instructions: the three
    forms of ``mm_chain_kernel``, ``bcast_chain_kernel`` matmul, the bf16
-   ``ddim_sampler_kernel`` and ``stage_kernel`` and both ``full_kernel``
-   instances issue them, every other kernel none, and no kernel a TF32
-   one; then the main
+   ``ddim_sampler_kernel`` and ``stage_kernel``, both ``full_kernel``
+   instances and the float32 ``churn_sampler_kernel`` and
+   ``churn_step_kernel`` issue them, every other kernel none, and no
+   kernel a TF32 one (the bound of every SiLU form is printed beside its
+   time; the library call, ``F.silu``, computes the ``f32`` form only);
+   then the main
    path: each tool's timing function (the one its ``main()`` calls) at
    its defaults, its lines printed as ``main()`` prints them, every form's
    output held against its plain version.
@@ -153,7 +165,7 @@ PPC_BG = 1024
 PPC_STEPS = {"ddim": 100, "dpmpp": 32, "churn": 100}
 TRAJ_STEPS = {"ddim": 100, "dpmpp": 32, "churn": 100}  # the trajectory main path's
 STEP_CHAIN = 3  # chained steps each per-step kernel is held over against its plain steps
-RAGGED_BG = 1021  # ragged at every block size of the step kernels (16, 9, 4, 2 rows)
+RAGGED_BG = 1021  # ragged at every block size of the step kernels (16, 9, 8, 4, 2 rows)
 FULL_BG = {"fpc": (BG, 2 * BG), "ppc": (PPC_BG, 2 * PPC_BG)}  # guided rows: plain and CFG
 CFG_SCALE, GUIDANCE_SCALE, REGION_POINTS = 2.0, 1.0, 128
 # the hybrid kernels' main-path rows: the fpc decode, the ppc CFG evaluation
@@ -501,21 +513,33 @@ def tc_macs(d) -> int:
     return n + 2 * L * 3 * d.block_channels[-1] ** 2
 
 
-def full_bound(w, bg: int, nbytes_: int) -> dict:
-    """``full_kernel``'s bound over ``bg`` rows. bf16: every product at the
-    bf16 peak. float32: the least over the two ways the card can compute the
-    float32 function (``mb_bound``): every product as float32 FMAs, or the
-    tensor-core products as the six exact bf16 products of the split with
-    the rest as float32 FMAs."""
-    flops, tc = 2.0 * full_macs(w.dims) * bg, 2.0 * tc_macs(w.dims) * bg
+def net_bound(w, flops: float, tc: float, nbytes_: int) -> dict:
+    """The bound of ``flops`` of network work, ``tc`` of them in the
+    products that the tensor-core body runs there. bf16: every product at
+    the bf16 peak. float32: the least over the two ways the card can
+    compute the float32 function (``mb_bound``): every product as float32
+    FMAs, or the tensor-core products as the six exact bf16 products of the
+    split with the rest as float32 FMAs."""
     if w.dtype == torch.bfloat16:
         return bound(flops, nbytes_, "bf16")
     return mb_bound([{"fp32": flops}, {"bf16": 6 * tc, "fp32": flops - tc}], nbytes_, PEAK_FLOPS)
 
 
+def full_bound(w, bg: int, nbytes_: int) -> dict:
+    """``full_kernel``'s bound over ``bg`` rows (``net_bound``)."""
+    return net_bound(w, 2.0 * full_macs(w.dims) * bg, 2.0 * tc_macs(w.dims) * bg, nbytes_)
+
+
 def net_macs(d) -> int:
     """One evaluation of the whole network for one row (init conv included)."""
     return 7 * d.seq_len * d.cins[0] + full_macs(d)
+
+
+def bound_way(b: dict) -> str:
+    """What sets a bound: bytes, or operations and, where ``mb_bound`` chose
+    among ways, the type whose time it is."""
+    way = b.get("bound_type", "bytes")
+    return b["bound_by"] + ("" if way == "bytes" else f": {way}")
 
 
 def nbytes(*ts) -> int:
@@ -529,12 +553,14 @@ def bound(flops: float, nbytes_: int, tag: str) -> dict:
                 bytes=nbytes_)
 
 
-def sampler_bound(w, evals: int, BG_: int, tag: str, *operands) -> dict:
-    """``evals`` network evaluations per row over BG_ rows; each operand
-    (and the weights, and the [BG_, L] fp32 output) moved once."""
+def sampler_bound(w, evals: int, BG_: int, *operands) -> dict:
+    """``evals`` network evaluations per row over BG_ rows (``net_bound``:
+    float32 the least over the FMAs and the split); each operand (and the
+    weights, and the [BG_, L] fp32 output) moved once."""
     out = BG_ * w.dims.seq_len * 4
-    return bound(2.0 * net_macs(w.dims) * evals * BG_,
-                 nbytes(w.math_flat, w.layout, *operands) + out, tag)
+    n = evals * BG_
+    return net_bound(w, 2.0 * net_macs(w.dims) * n, 2.0 * tc_macs(w.dims) * n,
+                     nbytes(w.math_flat, w.layout, *operands) + out)
 
 
 # ---------------------------------------------------------------------------
@@ -638,7 +664,7 @@ def kernel_phase(run: Run, vae, ddm, diffusion, dev) -> None:
                 k_ms = cuda_ms(lambda: sampler_apply(*args, *clip), 3)
                 p_ms = cuda_ms(lambda: sampler_plain(*args, *clip), 2)
                 run.record("ddim_sampler_kernel", "fpc", 4, BG, STEPS, tag, err=err, ms=k_ms,
-                           plain_ms=p_ms, **sampler_bound(wd, STEPS, BG, tag, x_T, embin,
+                           plain_ms=p_ms, **sampler_bound(wd, STEPS, BG, x_T, embin,
                                                            trows, coefs))
                 log(f"  ddim_sampler_kernel ddim: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
             else:
@@ -729,8 +755,9 @@ def hold(run: Run, w, runs, steps: dict, config: str, bg: int, mode: str, refs: 
         if mode == "full":
             k_ms = cuda_ms(kern, 3)
             p_ms = cuda_ms(plain, 2)
-            r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, tag, *ops))
-            log(f"  {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+            r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, *ops))
+            log(f"  {name}: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms; bound "
+                f"{r['bound_ms']:.4f} ms ({bound_way(r)})")
 
 
 def edm_kernel_phase(run: Run, ddm, ed, dev) -> None:
@@ -747,6 +774,7 @@ def edm_kernel_phase(run: Run, ddm, ed, dev) -> None:
     noise = torch.randn((EDM_STEPS["churn"], BG, dims.seq_len), generator=gen, device=dev)
     short = dict.fromkeys(EDM_STEPS, EDM_SHORT_STEPS)
     refs = {}
+    packing = packing_line(math_w, dims, dev, "EDM fpc")
     for dt in (torch.float32, torch.bfloat16):
         w = PackedNet(math_w, dims, dt, dev)
         input_emb = compute_input_emb(w.aux, z_pc)
@@ -754,6 +782,7 @@ def edm_kernel_phase(run: Run, ddm, ed, dev) -> None:
             log(f"[kernels] EDM fpc {tag_of(dt)}, BG={BG}, {mode}")
             hold(run, w, sampler_runs(w, ed, input_emb, x_unit, noise, steps), steps, "fpc", BG,
                  mode, refs, BG, EDM_STEPS)
+    run.records[("churn_sampler_kernel", "fpc")]["fp32"]["packing"] = packing
 
 
 def ppc_kernel_phase(run: Run, ddm, ed, sched, dev) -> None:
@@ -776,6 +805,7 @@ def ppc_kernel_phase(run: Run, ddm, ed, sched, dev) -> None:
               (PPC_BG, PPC_STEPS, "full"),
               (PPC_BG, dict.fromkeys(EDM_STEPS, EDM_SHORT_STEPS), "short"))
     refs = {}
+    packing = packing_line(math_w, dims, dev, "EDM ppc")
     for dt in (torch.float32, torch.bfloat16):
         w = PackedNet(math_w, dims, dt, dev)
         for bg, steps, mode in checks:
@@ -784,6 +814,7 @@ def ppc_kernel_phase(run: Run, ddm, ed, sched, dev) -> None:
             runs = sampler_runs(w, ed, input_emb, x_unit[:bg].contiguous(),
                                 noise[:, :bg].contiguous(), steps, sched)
             hold(run, w, runs, steps, "ppc", bg, mode, refs, PPC_BG, PPC_STEPS)
+    run.records[("churn_sampler_kernel", "ppc")]["fp32"]["packing"] = packing
 
 
 def steppers(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
@@ -839,7 +870,8 @@ def step_tols(tag: str, kind: str):
 
 def chain_vs_whole(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
     """x_0 of n step-kernel launches (``fused_sample*(return_trajectory=
-    True)``) and of the whole-trajectory kernel, on the same inputs."""
+    True)``) and of the whole-trajectory kernel, on the same inputs, and the
+    launches' trajectory."""
     from graspldm_tpu_torch.models import cuda_sampler as cs
 
     if kind == "ddim":
@@ -854,8 +886,8 @@ def chain_vs_whole(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
         def run(traj):
             return cs.fused_sample_churn(w, ed, input_emb, ed.sigma_max * x_unit, n,
                                          noise=noise[:n], return_trajectory=traj)
-    chain = run(True)[0]
-    return chain[:, 0], run(False)[:, 0]
+    chain, traj = run(True)[:2]
+    return chain[:, 0], run(False)[:, 0], traj
 
 
 def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) -> None:
@@ -910,10 +942,11 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
                 s_mid = n // 2
                 k_ms = cuda_ms(lambda: kstep(s_mid, x0, c0), 10)
                 p_ms = cuda_ms(lambda: pstep(s_mid, x0, c0), 3)
-                r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, tag, *ops))
+                r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, *ops))
                 log(f"  {name} {kind}: kernel {k_ms:.3f} ms per launch, plain {p_ms:.3f} ms; "
-                    f"bound {r['bound_ms']:.4f} ms")
-                chain, whole = chain_vs_whole(w, kind, sched, ed, input_emb, x_unit, noise, n)
+                    f"bound {r['bound_ms']:.4f} ms ({bound_way(r)})")
+                chain, whole, traj = chain_vs_whole(w, kind, sched, ed, input_emb, x_unit,
+                                                    noise, n)
                 torch.cuda.synchronize()
                 cw = (TOL_FP32, None, False) if tag == "fp32" else (
                     (TOL_BF16_SAMPLER, None, True) if kind == "ddim"
@@ -923,6 +956,44 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
                 bitwise = bool(torch.equal(chain, whole))
                 log(f"  bitwise equal to the whole-trajectory kernel: {bitwise}")
                 r["chain_vs_whole"] = dict(steps=n, max_abs_err=e, bitwise_equal=bitwise)
+                if tag == "fp32" and kind == "churn":
+                    r["split_controls"] = churn_controls(
+                        run, f"{name} {config} BG={bg}", w, math_w, traj, input_emb, ed, noise,
+                        n)
+
+
+def churn_controls(run: Run, label: str, w, math_w, traj, input_emb, ed, noise, n: int) -> dict:
+    """``split_controls`` for the float32 ``churn_step_kernel``, on step
+    n // 2 from the state its launches reached there (``traj``): its error
+    against ``churn_step_plain`` within ``SPLIT_VS_CUDA_CORES`` of the error
+    of the same plain step whose two network evaluations run the float32
+    stage chain (the CUDA cores; the init conv and the FiLM input as the
+    plain step computes them); and the same plain step with a bf16 network
+    (the bf16 pack, the same float32 tables and state), which must land
+    above ``TOL_FP32``."""
+    from graspldm_tpu_torch.models import cuda_sampler as cs
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet, init_conv
+
+    s = n // 2
+    x = traj[s][:, 0].contiguous()
+    embin, tA, tB, cA, cB = cs.churn_tables(w, ed, input_emb, n)
+    ops = (embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+
+    def chain_net(wn, x_in, embin_, trow):
+        emb = torch.nn.functional.silu(embin_ + trow).to(wn.dtype)
+        h = init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
+        return stage_chain(wn, h, emb).float()
+
+    got = cs.churn_step_apply(w, x, *ops)
+    ref = cs.churn_step_plain(w, x, *ops, False)
+    with mock.patch.object(cs, "_net_plain", chain_net):
+        chain = cs.churn_step_plain(w, x, *ops, False)
+    bf16 = cs.churn_step_plain(PackedNet(math_w, w.dims, torch.bfloat16, w.device), x, *ops,
+                               False)
+    torch.cuda.synchronize()
+    return dict(step=s, **control_verdicts(
+        run, f"{label} step {s}", "churn_step_plain", "the same step through the fp32 stage "
+        "chain", got, ref, chain, bf16))
 
 
 def full_operands(w, bg: int, gen, dev):
@@ -981,9 +1052,7 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
             tag = tag_of(dt)
             tol = TOL_FP32 if tag == "fp32" else TOL_BF16
             if tag == "fp32":
-                packing = split_packing_ms(math_w, dims, dev)
-                log(f"[kernels] float32 {label} packing: {packing['pack_ms']:.3f} ms, of which "
-                    f"the split's fragment copies {packing['split_ms']:.3f} ms (host clock)")
+                packing_line(math_w, dims, dev, label)
             for bg in bgs:
                 log(f"[kernels] full_kernel {label} {tag}, L={dims.seq_len}, BG={bg}")
                 x, emb = full_operands(w, bg, gen, dev)
@@ -1008,10 +1077,8 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
                 p_ms = cuda_ms(lambda: full_plain(w, x, emb), 3)
                 c_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
                 b = full_bound(w, bg, nbytes(x, emb, ref, w.math_flat, w.layout))
-                way = b.get("bound_type", "bytes")
-                way = "" if way == "bytes" else f": {way}"
                 log(f"  full_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, chain of 5 "
-                    f"launches {c_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({b['bound_by']}{way})")
+                    f"launches {c_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({bound_way(b)})")
                 timed = dict(BG=bg, ms=k_ms, plain_ms=p_ms, chain_ms=c_ms, **b)
                 r.setdefault("timed_at", []).append(timed)
                 if bg == FULL_BG[config][0]:
@@ -1021,7 +1088,8 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
 def split_packing_ms(math_w, dims, dev, reps: int = 5) -> dict:
     """Host milliseconds of a float32 ``PackedNet`` (every generation call
     packs its denoiser) and of the part of it that builds the exact split's
-    fragment-ordered copies, which only ``full_kernel<float>`` reads."""
+    fragment-ordered copies, which ``full_kernel<float>`` and the float32
+    churn kernels (``churn_sampler_kernel``, ``churn_step_kernel``) read."""
     from graspldm_tpu_torch.models import stacked_cuda as sc
 
     def ms(fn) -> float:
@@ -1038,6 +1106,15 @@ def split_packing_ms(math_w, dims, dev, reps: int = 5) -> dict:
                 split_ms=ms(lambda: [sc._tc_copy(v, taps, torch.float32) for taps, v in products]))
 
 
+def packing_line(math_w, dims, dev, label: str) -> dict:
+    """``split_packing_ms``, logged: the float32 pack that the calls of
+    ``label`` make before their kernels read the split's copies."""
+    packing = split_packing_ms(math_w, dims, dev)
+    log(f"[kernels] float32 {label} packing: {packing['pack_ms']:.3f} ms, of which the split's "
+        f"fragment copies {packing['split_ms']:.3f} ms (host clock)")
+    return packing
+
+
 def split_controls(run: Run, name: str, w_bf16, x, emb, got, ref, chain) -> dict:
     """The float32 ``full_kernel``'s two controls on its own operands: its
     error against ``full_plain`` beside the float32 stage chain's (the same
@@ -1046,28 +1123,35 @@ def split_controls(run: Run, name: str, w_bf16, x, emb, got, ref, chain) -> dict
     bf16), which must land above ``TOL_FP32``."""
     from graspldm_tpu_torch.models.stacked_cuda import full_plain
 
+    bf16 = full_plain(w_bf16, x.to(torch.bfloat16), emb.to(torch.bfloat16)).float()
+    return control_verdicts(run, name, "full_plain", "the fp32 stage chain", got, ref, chain,
+                            bf16)
+
+
+def control_verdicts(run: Run, name: str, ref_name: str, chain_name: str, got, ref, chain,
+                     bf16) -> dict:
+    """Log and hold a float32 tensor-core kernel's two controls: ``got``'s
+    error against ``ref`` within ``SPLIT_VS_CUDA_CORES`` of ``chain``'s (the
+    same function on the CUDA cores), and ``bf16``'s (a bf16 network) above
+    ``TOL_FP32``, both relative to max(1, max|ref|)."""
     top = max(1.0, ref.abs().max().item())
-    err = (got - ref).abs().max().item()
-    chain_err = (chain - ref).abs().max().item()
+    err, chain_err, bf16_err = ((t - ref).abs().max().item() for t in (got, chain, bf16))
     ratio = err / max(chain_err, 1e-30)
     apart = (got - chain).abs().max().item() / top
-    bf16 = full_plain(w_bf16, x.to(torch.bfloat16), emb.to(torch.bfloat16)).float()
-    bf16_err = (bf16 - ref).abs().max().item()
-    ok = ratio <= SPLIT_VS_CUDA_CORES
-    caught = bf16_err > TOL_FP32 * top
+    ok, caught = ratio <= SPLIT_VS_CUDA_CORES, bf16_err > TOL_FP32 * top
     log(f"  CUDA-core control: {name} (tensor cores, exact bf16 split) {err:.3e} against "
-        f"full_plain, the fp32 stage chain (CUDA cores) {chain_err:.3e}: {ratio:.2f}x (limit "
+        f"{ref_name}, {chain_name} (CUDA cores) {chain_err:.3e}: {ratio:.2f}x (limit "
         f"{SPLIT_VS_CUDA_CORES:g}x) -> {'ok' if ok else 'FAIL'}; kernel and chain {apart:.3e} of "
         f"max(1, max|ref|) apart")
-    log(f"  bf16 control: a bf16 network against full_plain {bf16_err:.3e} (rel "
+    log(f"  bf16 control: a bf16 network against {ref_name} {bf16_err:.3e} (rel "
         f"{bf16_err / top:.3e}), above TOL_FP32's {TOL_FP32 * top:.3e}: "
         f"{'yes' if caught else 'NO'}")
     if not ok:
         run.failures.append(f"{name}: {ratio:.2f}x the CUDA-core chain's error")
     if not caught:
         run.failures.append(f"{name}: TOL_FP32 would pass a bf16 network")
-    return dict(cuda_core_chain_err=chain_err, vs_cuda_core_chain=ratio, bf16_network_err=bf16_err,
-                rel_apart_from_chain=apart)
+    return dict(max_abs_err=err, cuda_core_chain_err=chain_err, vs_cuda_core_chain=ratio,
+                bf16_network_err=bf16_err, rel_apart_from_chain=apart)
 
 
 # ---------------------------------------------------------------------------
@@ -1477,6 +1561,9 @@ def guided_phase(run: Run, cls_fpc, fpc, fpc_edm, region_ppc, dev) -> None:
          per_call_full(EDM_STEPS["dpmpp"])),
         ("region EDM ppc dpmpp, cfg", "ppc", region_ppc, pc1, meta1, "dpmpp", EDM_STEPS["dpmpp"],
          dict(region_points=region, cfg_scale=CFG_SCALE), per_call_full(EDM_STEPS["dpmpp"])),
+        # the float32 churn_sampler_kernel: the region embedding folded in
+        ("region EDM ppc churn, unguided", "ppc", region_ppc, pc1, meta1, "churn",
+         EDM_STEPS["churn"], dict(region_points=region), per_call("churn_sampler_kernel")),
     ]
     for label, config, models, pc, m, sampler, steps, kw, expect in calls:
         b = pc.shape[0]
@@ -2146,6 +2233,7 @@ def mb_operands(tool: str, R: int, dev, seed: int, dense: bool = False) -> dict:
         return dict(
             kern=lambda f, r=reps: m.silu_chain_apply(x, f, r),
             plain=lambda f: m.plain_chain(x, f),
+            # F.silu computes the f32 form (one rounding) whatever the form
             library=lambda f: torch.nn.functional.silu(x),
             ops=lambda f: [{"sfu": 2.0 * reps * x.numel(), "fp32": 3.0 * reps * x.numel()}],
             bytes=lambda f: 2 * nbytes(x),
@@ -2195,14 +2283,15 @@ def sfu_rate(dev) -> float:
 TENSOR_CORE_KERNELS = {("mm_chain_kernel", "f32"), ("mm_chain_kernel", "bf16"),
                        ("mm_chain_kernel", "split"), ("bcast_chain_kernel", "matmul"),
                        ("ddim_sampler_kernel", "bf16"), ("full_kernel", "bf16"),
-                       ("full_kernel", "fp32"), ("stage_kernel", "bf16")}
+                       ("full_kernel", "fp32"), ("stage_kernel", "bf16"),
+                       ("churn_sampler_kernel", "fp32"), ("churn_step_kernel", "fp32")}
 
 
 def sass_check(run: Run) -> None:
     """``cuobjdump -sass`` of every built library: the kernels of
     TENSOR_CORE_KERNELS issue HMMA, every other kernel (the float32
-    ``ddim_sampler_kernel`` and ``stage_kernel``, ``final_kernel`` among
-    them) none, and no kernel a TF32 HMMA.
+    ``ddim_sampler_kernel`` and ``stage_kernel``, ``final_kernel``, the DPM++
+    and the bf16 churn kernels among them) none, and no kernel a TF32 HMMA.
     Instances are named by their template argument (a micro-benchmark
     kernel's form, or bf16 / fp32)."""
     from graspldm_tpu_torch.cuda_build import library_path, nvcc_path
@@ -2290,8 +2379,10 @@ def microbench_kernel_phase(run: Run, dev) -> None:
                 run.record(name, form, None, R, mod.REPS, tag, what=ops["what"], ms=k_ms,
                            plain_ms=p_ms, library_ms=l_ms, reps1_ms=r1_ms, **b)
                 folded = k_ms < MIN_REPS_RATIO * r1_ms
+                lib_note = " of the f32 form" if tool == "silu" and form != "f32" else ""
                 log(f"  {name} {form}: kernel {k_ms:.4f} ms ({mod.REPS} reps; 1 rep {r1_ms:.4f} "
-                    f"ms), plain {p_ms:.4f} ms, library {l_ms:.4f} ms ({mod.REPS} calls), bound "
+                    f"ms), plain {p_ms:.4f} ms, library {l_ms:.4f} ms ({mod.REPS} calls"
+                    f"{lib_note}), bound "
                     f"{b['bound_ms']:.4f} ms ({b['bound_by']}: {b['bound_type']}"
                     + (", the SFU floor" if b["bound_type"] == "sfu" else "") + ")"
                     + (f" -> FAIL: under {MIN_REPS_RATIO}x the one-rep time" if folded else ""))
@@ -2363,7 +2454,8 @@ def kernels_line(run: Run) -> dict:
             "bound_by_fp32": fp.get("bound_by"),
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
                for k in ("chain_ms", "timed_at", "unsplit_chain_ms", "attention_ms",
-                         "chain_vs_unsplit", "reps1_ms", "vs_dpmpp_per_step") if k in t},
+                         "chain_vs_unsplit", "reps1_ms", "vs_dpmpp_per_step", "packing",
+                         "split_controls") if k in t},
             **({"err_checked_at_fp32": fp["err_checked_at"]}
                if "err_checked_at" in fp and "bf16" in r else {}),
             "launches_per_call": run.per_call.get((name, config), {}),

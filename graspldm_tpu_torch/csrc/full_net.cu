@@ -32,7 +32,8 @@
 // through device memory between its 5 launches) and reads each weight
 // once per R rows through L1/L2. R is the most rows whose buffers, sized
 // for the widest stage, fit the shared-memory budget, cut to a whole
-// number of 32-token warp units (two m-tiles): float32 at fpc fits 9 rows
+// number of 32-token warp units (two m-tiles; tc_rows_per_block in
+// sampler_body.cuh, which the churn kernels share): float32 at fpc fits 9 rows
 // (25 KB each), and the ninth row's tokens would take a second unit a
 // warp alone, so it runs 8; the ragged last block is masked here, not
 // padded by the caller. A float32 activation staged for a product takes
@@ -77,18 +78,13 @@ full_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restr
   });
 }
 
-// R: the most rows that fit, cut to a whole number of 32-token warp units
-// (two m-tiles) where it spans more than one: the float32 fpc plan fits 9
-// rows (36 tokens), whose ninth would take a second unit a warp alone
 template <typename T>
 int launch_full(const void* x, const void* emb, const void* w, const long long* net, void* out,
                 int BG, int L, int E, int Ce, int G, int cmax, cudaStream_t st) {
   const Plan p = full_plan(L, cmax, E, G);
-  int R = rows_per_block<T>(p);
-  if (R * L > 32) R -= (R * L % 32) / L;
-  return launch_rows_at<T, kTcThreads>(full_kernel<T>, p, R, BG, st, (const T*)x,
-                                       (const T*)emb, (const T*)w, net, (T*)out, BG, L, E, Ce,
-                                       G, cmax);
+  return launch_rows_at<T, kTcThreads>(full_kernel<T>, p, tc_rows_per_block<T>(p, L), BG, st,
+                                       (const T*)x, (const T*)emb, (const T*)w, net, (T*)out, BG,
+                                       L, E, Ce, G, cmax);
 }
 
 }  // namespace

@@ -11,10 +11,13 @@
 // net_body, which full_kernel (full_net.cu) runs too. net_body<T, true>
 // runs the convs, the projections and the attention's wqkv / wo on the
 // tensor cores (tc_blocks.cuh), from the fragment-ordered weights of the
-// layout's tensor-core table: ddim_sampler_kernel<bf16> (net_step<bf16,
-// true>), full_kernel<bf16> and full_kernel<float> (float32 through the
-// exact bf16 split). Everything else, and the other sampler kernels, run
-// resnet1d_blocks.cuh's CUDA-core body.
+// layout's tensor-core table, at 512 threads (kTcThreads):
+// ddim_sampler_kernel<bf16> (net_step<bf16, true>), the float32
+// churn_sampler_kernel and churn_step_kernel (net_step<float, true>) and
+// full_kernel in both dtypes; the float32 instances through the exact bf16
+// split. The bf16 churn kernels run resnet1d_blocks.cuh's CUDA-core body at
+// 512 threads, the float32 DDIM sampler, the DPM++ sampler and the DDIM /
+// DPM++ step kernels at 256.
 #pragma once
 
 #include "tc_blocks.cuh"
@@ -54,6 +57,34 @@ int launch_rows_at(Kernel kernel, const Plan& p, int R, int BG, cudaStream_t st,
 template <typename T, int Threads = kThreads, typename Kernel, typename... Args>
 int launch_rows(Kernel kernel, const Plan& p, int BG, cudaStream_t st, Args... args) {
   return launch_rows_at<T, Threads>(kernel, p, rows_per_block<T>(p), BG, st, args...);
+}
+
+// The rows a block of the tensor-core body (tc_blocks.cuh): the most rows of
+// plan p that fit, cut to a whole number of 32-token warp units (two
+// m-tiles) where they span more than one. The float32 fpc plans of
+// full_kernel and of the churn kernels fit 9 rows (36 tokens), whose ninth
+// row would take a second unit a warp alone, so they run 8; every other
+// plan of the flagships fills its units (bf16 16 rows at L = 4 and 4 at
+// L = 16; float32 ppc 2).
+template <typename T>
+int tc_rows_per_block(const Plan& p, int L) {
+  int R = rows_per_block<T>(p);
+  if (R * L > 32) R -= (R * L % 32) / L;
+  return R;
+}
+
+// The churn kernels (churn_sampler.cu, step_samplers.cu): the network on
+// the tensor cores in float32 (through the exact bf16 split) and on the
+// CUDA cores in bf16 (churn_sampler.cu says why), 512 threads in both
+// dtypes, tc_rows_per_block's rows
+template <typename T> constexpr bool kChurnTc = sizeof(T) == 4;
+template <typename T> constexpr int kChurnThreads = kTcThreads;
+
+template <typename T, typename Kernel, typename... Args>
+int launch_churn_rows(Kernel kernel, const Plan& p, int L, int BG, cudaStream_t st,
+                      Args... args) {
+  return launch_rows_at<T, kChurnThreads<T>>(kernel, p, tc_rows_per_block<T>(p, L), BG, st,
+                                             args...);
 }
 
 // Load the block's rows of x_T into the first carry vector b.XC[0, R*L)
@@ -111,10 +142,16 @@ __device__ __forceinline__ void net_body(const Bufs<T>& b, int n_st, int R, int 
 //          to T, stored as fp32.
 // src [R*L] is fp32 in shared memory; the caller synchronises after
 // writing it. Returns out = b.SS [R*L], valid when this returns (it ends
-// synchronised) and until the next net_step. TC (bf16 only): the
-// products on the tensor cores.
+// synchronised) and until the next net_step. TC: the products on the
+// tensor cores (net_body<T, true>; float32 T through the exact bf16 split),
+// for a caller launched with kTcThreads threads: ddim_sampler_kernel<bf16>
+// and the float32 churn kernels. Forced inline: the float32 churn kernels,
+// whose one call site sits in a loop over steps and legs, read 471 ms
+// without it against 351 at fpc BG = 4096 (ppc 1024: 504 against 359;
+// tools/kernel_variants.py, H100 80GB HBM3, 700.00 W); the DDIM sampler
+// reads the same either way.
 template <typename T, bool TC = false>
-__device__ inline const float* net_step(const Bufs<T>& b, const float* src, float scale,
+__device__ __forceinline__ const float* net_step(const Bufs<T>& b, const float* src, float scale,
                                         const float* __restrict__ trow, int R, int L, int E,
                                         int Ce, int G, const T* __restrict__ Wf,
                                         const long long* __restrict__ net) {

@@ -28,11 +28,20 @@
 // the weights (1.8 MB bf16 / 3.6 MB fp32 at fpc) are re-read once per block
 // through L1/L2 in every launch, and the state in and out is 16-64 B per row.
 //
-// Design: the block plan and the step body of the matching whole-trajectory
-// kernel (sampler_plan with the same carry count, net_step in
-// sampler_body.cuh), so a block holds the same rows (16 bf16 / 9 fp32 at fpc,
-// 4 / 2 at ppc) and computes the same arithmetic; only the fp32 carry goes
-// through device memory between steps (exactly: it is fp32 on both sides).
+// Design: the block plan, the step body and the launch of the matching
+// whole-trajectory kernel (sampler_plan with the same carry count, net_step
+// in sampler_body.cuh), so a block holds the same rows and computes the same
+// arithmetic; only the fp32 carry goes through device memory between steps
+// (exactly: it is fp32 on both sides). ddim_step_kernel and
+// dpmpp_step_kernel run the CUDA-core body at 256 threads (16 bf16 / 9 fp32
+// rows at fpc, 4 / 2 at ppc). churn_step_kernel runs churn_sampler_kernel's
+// network, float32 on the tensor cores through the exact bf16 split and bf16
+// on the CUDA cores (kChurnTc), at 512 threads and tc_rows_per_block's rows
+// (16 bf16 / 8 fp32 at fpc, 4 / 2 at ppc): one launch at step 50 of 100
+// takes 3.34 / 3.32 ms in float32 and 4.31 / 4.77 in bf16 at fpc BG = 4096 /
+// ppc BG = 1024 (bf16 at 256 threads: 6.30 / 6.71; tools/kernel_variants.py,
+// H100 80GB HBM3, 700.00 W); churn_sampler.cu gives the decisions.
+//
 // Each update is a copy of the one in its whole-trajectory twin, named at the
 // update; the twins are left as they are, because their times moved by whole
 // percents with small edits near the shared step body (PERF.md).
@@ -120,7 +129,7 @@ dpmpp_step_kernel(const float* __restrict__ x, const float* __restrict__ old,
 // At the last step sigma_next = 0 and sel = 0 selects x_eul by
 // multiplication, as the TPU kernel does; the second leg runs anyway.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kChurnThreads<T>)
 churn_step_kernel(const float* __restrict__ x, const float* __restrict__ noise,
                   const float* __restrict__ embin, const float* __restrict__ trowA,
                   const float* __restrict__ trowB, const float* __restrict__ a,
@@ -147,7 +156,8 @@ churn_step_kernel(const float* __restrict__ x, const float* __restrict__ noise,
   for (int leg = 0; leg < 2; ++leg) {
     const float* k = leg ? c : a;
     const float* src = leg ? XE : XH;
-    const float* nout = net_step(b, src, k[0], leg ? trowB : trowA, R, L, E, Ce, G, Wf, net);
+    const float* nout =
+        net_step<T, kChurnTc<T>>(b, src, k[0], leg ? trowB : trowA, R, L, E, Ce, G, Wf, net);
     for (int idx = threadIdx.x; idx < RL; idx += blockDim.x) {
       const float xin = src[idx];
       float den = k[1] * xin + k[2] * nout[idx];
@@ -210,14 +220,15 @@ int gl_churn_step(int dtype, const float* x, const float* noise, const float* em
                   const float* coefB, const void* w, const long long* net, float* out, int BG,
                   int L, int E, int Ce, int G, int cmax, int clamp, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const Plan p = sampler_plan(L, cmax, E, Ce, G, 4);
   if (dtype == 0)
-    return launch_rows<float>(churn_step_kernel<float>, sampler_plan(L, cmax, E, Ce, G, 4), BG,
-                              st, x, noise, embin, trowA, trowB, coefA, coefB, (const float*)w,
-                              net, out, BG, L, E, Ce, G, cmax, clamp);
-  return launch_rows<__nv_bfloat16>(churn_step_kernel<__nv_bfloat16>,
-                                    sampler_plan(L, cmax, E, Ce, G, 4), BG, st, x, noise, embin,
-                                    trowA, trowB, coefA, coefB, (const __nv_bfloat16*)w, net,
-                                    out, BG, L, E, Ce, G, cmax, clamp);
+    return launch_churn_rows<float>(churn_step_kernel<float>, p, L, BG, st, x, noise, embin,
+                                    trowA, trowB, coefA, coefB, (const float*)w, net, out, BG, L,
+                                    E, Ce, G, cmax, clamp);
+  return launch_churn_rows<__nv_bfloat16>(churn_step_kernel<__nv_bfloat16>, p, L, BG, st, x,
+                                          noise, embin, trowA, trowB, coefA, coefB,
+                                          (const __nv_bfloat16*)w, net, out, BG, L, E, Ce, G,
+                                          cmax, clamp);
 }
 
 }  // extern "C"

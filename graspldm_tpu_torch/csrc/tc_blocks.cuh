@@ -1,7 +1,8 @@
 // The network's products on the tensor cores: TcProducts<T>, for the
 // network bodies of ddim_sampler_kernel<bf16> (kernels.cu), full_kernel<bf16>
-// and full_kernel<float> (full_net.cu, net_body in sampler_body.cuh) and
-// stage_kernel<bf16> (kernels.cu).
+// and full_kernel<float> (full_net.cu), the float32 churn_sampler_kernel and
+// churn_step_kernel (churn_sampler.cu, step_samplers.cu; all through net_body
+// in sampler_body.cuh) and stage_kernel<bf16> (kernels.cu).
 //
 // What moves here from resnet1d_blocks.cuh's CUDA-core products: the
 // resblocks' two k3 convs, the k3 projection (conv3) and the attention's
@@ -12,9 +13,10 @@
 // softmaxes and the L x L score and value products stay on the CUDA cores
 // (the scores in another summation order, below).
 //
-// float32 (full_kernel<float>): the exact bf16 split. The function stays the
-// float32 one. A float32 value is the sum of three bf16 values exactly
-// (8 + 8 + 8 significant bits hold its 24 wherever no part underflows bf16):
+// float32 (full_kernel<float>, the float32 churn kernels): the exact bf16
+// split. The function stays the float32 one. A float32 value is the sum of
+// three bf16 values exactly (8 + 8 + 8 significant bits hold its 24
+// wherever no part underflows bf16):
 // x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2). The weights are
 // split at packing time (stacked_cuda.bf16_parts), the activations when a
 // product stages its A operand. Of the nine bf16 products a_i * w_j the six
@@ -37,12 +39,13 @@
 //   product go round the 16 warps, token pairs fastest: at M = 64 (every
 //   bf16 network body at fpc and ppc) that is the 2 (M) x 8 (N) warp grid,
 //   looping over column groups where N > 128; at M = 32 (full_kernel<float>
-//   at fpc and ppc) 16 warps over 256 columns; at M = 96-160 (the bf16
-//   decoder stages) 3 to 5 token pairs. A unit finds its tokens' positions
-//   in their rows once (the k3 conv's taps test them against the row's
-//   ends), not at each tap. An m-tile wholly past M (the
-//   second of the last pair where M / 16 is odd) runs on the zero row:
-//   skipping it cost more in the k-loop's branches than it saved.
+//   and the float32 churn kernels at fpc and ppc) 16 warps over 256
+//   columns; at M = 96-160 (the bf16 decoder stages) 3 to 5 token pairs.
+//   A unit finds its tokens' positions in their rows once (the k3 conv's
+//   taps test them against the row's ends), not at each tap. An m-tile
+//   wholly past M (the second of the last pair where M / 16 is odd) runs on
+//   the zero row: skipping it cost more in the k-loop's branches than it
+//   saved.
 // A: each product first copies its A (token-major [M][Ck], channel fastest:
 //   K-major) into buffers that are dead during the product with the token
 //   stride padded by 16 bytes and a zero row after it: at the activations'

@@ -11,7 +11,8 @@ torch cannot reproduce ``jax.random``, so the starting latents ``x_T``
 (already scaled by sigma_max) and the churn sampler's per-step unit
 normals are explicit tensors; when they are not given they are drawn from
 the caller's ``torch.Generator``. With ``return_trajectory`` each sampler
-also returns its states as the JAX package's does. A ``guidance_fn``
+also returns its states as the JAX package's does. ``sample`` dispatches
+to either, as the JAX package's does. A ``guidance_fn``
 (:mod:`.guidance`) shifts every preconditioned estimate; the guided
 generation path runs these loops. The training loss waits for the training
 slice.
@@ -119,6 +120,30 @@ class ElucidatedDiffusion:
         if guidance_fn is not None:
             out = out + guidance_scale * (sigma**2)[:, None, None] * guidance_fn(out)
         return out
+
+    def sample(
+        self, denoise_fn: DenoiseFn, batch_size: int, z_cond: Optional[torch.Tensor] = None,
+        num_sample_steps: Optional[int] = None, use_dpmpp: bool = False, clamp: bool = False,
+        return_trajectory: bool = False, guidance_fn=None, guidance_scale: float = 1.0, *,
+        x_T: Optional[torch.Tensor] = None, noise: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None, device=None,
+    ):
+        """The JAX package's entry point, in its argument order:
+        :meth:`sample_dpmpp` with ``use_dpmpp``, else :meth:`sample_churn`.
+        The draws the JAX package takes from its ``rng`` are explicit here
+        (``x_T``, and the churn sampler's ``noise``) or come from
+        ``generator``. Returns what the chosen sampler returns. DPM++ draws
+        no noise after ``x_T``, so ``noise`` with ``use_dpmpp`` raises
+        ``ValueError``."""
+        kw = dict(z_cond=z_cond, num_sample_steps=num_sample_steps, clamp=clamp, x_T=x_T,
+                  generator=generator, device=device, return_trajectory=return_trajectory,
+                  guidance_fn=guidance_fn, guidance_scale=guidance_scale)
+        if not use_dpmpp:
+            return self.sample_churn(denoise_fn, batch_size, noise=noise, **kw)
+        if noise is not None:
+            raise ValueError("sample(use_dpmpp=True) takes no noise: DPM-Solver++(2M) draws "
+                             "nothing after x_T")
+        return self.sample_dpmpp(denoise_fn, batch_size, **kw)
 
     @torch.no_grad()
     def sample_churn(

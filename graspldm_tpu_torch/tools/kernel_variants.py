@@ -10,8 +10,22 @@ the same operands (seeded weights of the fpc / ppc flagship denoisers and
 the VAE decoder), and the line prints each variant's lesser ms of its two
 turns and, for ``full_kernel``, its error against ``full_plain`` relative
 to max(1, max|ref|), beside the float32 stage chain's (the CUDA cores).
+``--kernels`` limits the timed calls (and the sources built) to some of
+``full``, ``ddim``, ``stage`` and ``churn``.
 
-    python -m graspldm_tpu_torch.tools.kernel_variants [VARIANT ...]
+The churn lines give, beside each variant's time, a mean error relative to
+max(1, max|ref|) that ``chip_smoke.py`` holds in bf16: of a 2-step
+trajectory against ``churn_sampler_plain`` (``TOL_BF16_EDM_STEP_MEAN``),
+and of the first 3 churn steps against ``churn_step_plain``
+(``TOL_BF16_STEP_MEAN["churn"]``).
+
+``--staging`` builds the churn kernels' sources once more with a counter of
+the path each tensor-core product of block 0 takes (its A staged in the dead
+buffers; read value by value for a width off the 16-wide k-step; or value
+by value for want of room, which must read 0) and prints the counts of one
+launch of each float32 churn kernel at the fpc and ppc denoisers.
+
+    python -m graspldm_tpu_torch.tools.kernel_variants [--kernels K ...] [--staging] [VARIANT ...]
 
 Needs a card and ``nvcc``; it raises without them.
 """
@@ -20,6 +34,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import re
 import shutil
 import subprocess
 import types
@@ -30,6 +45,7 @@ import torch
 from ..cuda_build import _FLAGS, _SOURCES, BUILD_DIR, CSRC, load_library, nvcc_path
 from ..flagship import FlagshipConfig, build_flagship, resolve_device
 from ..inference.pipeline import _denoiser_dims
+from ..models import cuda_sampler as cs
 from ..models import stacked_cuda as sc
 from ..models.fast_decoder import decoder_dims_for
 from ..models.stacked_denoiser import (
@@ -40,10 +56,30 @@ from ..utils.profiling import device_line, timeit
 __all__ = ["VARIANTS", "patched_sources", "main"]
 
 _TC, _SB = "tc_blocks.cuh", "sampler_body.cuh"
+_BF16_CHURN_TC = (_SB, "template <typename T> constexpr bool kChurnTc = sizeof(T) == 4;",
+                  "template <typename T> constexpr bool kChurnTc = true;")
+# each bf16 mma into a zeroed accumulator, its sum added to the running one
+# with a float32 add: no truncated running sum
+_FRESH = (_TC, """            mma_bf16(acc[i][2 * q], a[0], bq[d][0][q].x, bq[d][0][q].y);
+            mma_bf16(acc[i][2 * q + 1], a[0], bq[d][0][q].z, bq[d][0][q].w);
+""", """            if constexpr (NA == 1) {
+              float t0[4] = {0.f, 0.f, 0.f, 0.f}, t1[4] = {0.f, 0.f, 0.f, 0.f};
+              mma_bf16(t0, a[0], bq[d][0][q].x, bq[d][0][q].y);
+              mma_bf16(t1, a[0], bq[d][0][q].z, bq[d][0][q].w);
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                acc[i][2 * q][e] += t0[e];
+                acc[i][2 * q + 1][e] += t1[e];
+              }
+            } else {
+              mma_bf16(acc[i][2 * q], a[0], bq[d][0][q].x, bq[d][0][q].y);
+              mma_bf16(acc[i][2 * q + 1], a[0], bq[d][0][q].z, bq[d][0][q].w);
+            }
+""")
 # name -> [(file, text, replacement)]: each undoes one decision
 VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
     "as built": [],
-    "fp32 fpc at 9 rows": [("full_net.cu", "  if (R * L > 32) R -= (R * L % 32) / L;\n", "")],
+    "fp32 fpc at 9 rows": [(_SB, "  if (R * L > 32) R -= (R * L % 32) / L;\n", "")],
     "bf16: B 1 k-step ahead": [(_TC, "constexpr int kTcDepth = 2;", "constexpr int kTcDepth = 1;")],
     "split: B 2 k-steps ahead": [
         (_TC, "constexpr int DEPTH = NA == 1 ? kTcDepth : 1;", "constexpr int DEPTH = kTcDepth;")],
@@ -75,8 +111,36 @@ VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
         (_SB, "net_body<T, TC>(b, n_st, R,", "net_body<T, TC>(b, (int)net[N_NSTAGES], R,")],
     "net_body not forced inline": [
         (_SB, "__device__ __forceinline__ void net_body(", "__device__ inline void net_body(")],
+    "net_step not forced inline": [
+        (_SB, "__device__ __forceinline__ const float* net_step(",
+         "__device__ inline const float* net_step(")],
+    "bf16 churn at 256 threads": [
+        (_SB, "template <typename T> constexpr int kChurnThreads = kTcThreads;",
+         "template <typename T> constexpr int kChurnThreads = sizeof(T) == 4 ? kTcThreads "
+         ": kThreads;")],
+    "bf16 churn on the tensor cores": [_BF16_CHURN_TC],
+    "bf16 churn on the tensor cores, a fresh accumulator a k-step": [_BF16_CHURN_TC, _FRESH],
 }
-_BUILT = ("kernels.cu", "full_net.cu")  # the timed kernels' sources
+# the timed calls' sources
+_BUILT = {"full": ("full_net.cu",), "ddim": ("kernels.cu",), "stage": ("kernels.cu",),
+          "churn": ("churn_sampler.cu", "step_samplers.cu")}
+_CHURN = _BUILT["churn"]
+# block 0's tensor-core products by path: staged, off the k-step, no room
+_STAGING = [
+    (_TC, "namespace gl {\n", "namespace gl {\n__device__ unsigned long long gl_staged[3];\n"),
+    (_TC, "  if (!fast) {\n",
+     "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
+     "    atomicAdd(&gl_staged[fast ? 0 : ((Ck & 15) || (lda & 7)) ? 1 : 2], 1ull);\n"
+     "  if (!fast) {\n"),
+    (_TC, "}  // namespace gl\n", """}  // namespace gl
+
+extern "C" int gl_staging_counts(unsigned long long* out) {
+  const unsigned long long zero[3] = {0ull, 0ull, 0ull};
+  cudaError_t e = cudaMemcpyFromSymbol(out, gl::gl_staged, sizeof(zero));
+  return (int)(e != cudaSuccess ? e : cudaMemcpyToSymbol(gl::gl_staged, zero, sizeof(zero)));
+}
+"""),
+]
 
 
 def patched_sources(patches: List[Tuple[str, str, str]]) -> Dict[str, str]:
@@ -91,25 +155,36 @@ def patched_sources(patches: List[Tuple[str, str, str]]) -> Dict[str, str]:
     return files
 
 
-def _build(names: List[str]) -> Dict[str, types.SimpleNamespace]:
-    """Each variant's libraries of _BUILT: its C entries by name."""
-    root = BUILD_DIR / "variants"
+# a kernel's ptxas -v report: its short name, spills, registers
+_PTXAS = re.compile(r"Function properties for \w*?\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)E\w*\n"
+                    r"\s*\d+ bytes stack frame, (\d+ bytes spill stores, \d+ bytes spill loads)\n"
+                    r"[^\n]*Used (\d+) registers")
+
+
+def _build(variants: Dict[str, List[Tuple[str, str, str]]], sources,
+           root: str = "variants") -> Dict[str, types.SimpleNamespace]:
+    """Each variant's (name -> patches) libraries of ``sources``: its C
+    entries by name."""
+    root = BUILD_DIR / root
     shutil.rmtree(root, ignore_errors=True)
     procs = []
-    for i, name in enumerate(names):
+    for i, (name, patches) in enumerate(variants.items()):
         d = root / str(i)
         shutil.copytree(CSRC, d)
-        for f, text in patched_sources(VARIANTS[name]).items():
+        for f, text in patched_sources(patches).items():
             (d / f).write_text(text)
-        for src in _BUILT:
+        for src in sources:
             cmd = [nvcc_path(), *_FLAGS, "-o", str(d / f"{src}.so"), str(d / src)]
             procs.append((name, d, src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                          stderr=subprocess.PIPE, text=True)))
-    libs: Dict[str, types.SimpleNamespace] = {n: types.SimpleNamespace() for n in names}
+    libs: Dict[str, types.SimpleNamespace] = {n: types.SimpleNamespace() for n in variants}
     for name, d, src, proc in procs:
-        _, err = proc.communicate()
+        out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name} {src}:\n{err[-4000:]}")
+        for kernel, dt, spill, regs in _PTXAS.findall(out + err):
+            print(f"ptxas {name}: {kernel}<{'fp32' if dt == 'f' else 'bf16'}>: {regs} registers, "
+                  f"{spill}", flush=True)
         lib = ctypes.CDLL(str(d / f"{src}.so"))
         for entry, argtypes in _SOURCES[src].items():
             fn = getattr(lib, entry)
@@ -135,17 +210,21 @@ def _turns(libs, entry: str, call: Callable, reps: int) -> Dict[str, float]:
     return ms
 
 
-def _errors(libs, call: Callable, ref: torch.Tensor) -> Dict[str, float]:
+def _errors(libs, entry: str, call: Callable, ref: torch.Tensor,
+            mean: bool = False) -> Dict[str, float]:
+    """Each variant's largest (or mean) error of ``call`` with its ``entry``
+    against ``ref``, relative to max(1, max|ref|)."""
     ns = load_library()
-    own = ns.gl_full_forward
+    own = getattr(ns, entry)
     top = max(1.0, ref.abs().max().item())
     out = {}
     try:
         for name, lib in libs.items():
-            ns.gl_full_forward = lib.gl_full_forward
-            out[name] = (call().float() - ref).abs().max().item() / top
+            setattr(ns, entry, getattr(lib, entry))
+            d = (call().float() - ref).abs()
+            out[name] = (d.mean() if mean else d.max()).item() / top
     finally:
-        ns.gl_full_forward = own
+        setattr(ns, entry, own)
     return out
 
 
@@ -166,36 +245,110 @@ def _chain(w, x, emb):
     return sc.final_apply(w, x, emb)
 
 
+_PPC = dict(pc_latent_size=256, grasp_latent_size=16)
+
+
+def _churn_operands(w, ed, bg: int, gen, dev, n: int = 100):
+    """The churn kernels' operands over ``bg`` rows: x_T at sigma_max, the
+    tables of an ``n``-step trajectory and its unit normals."""
+    d = w.dims
+    z = torch.randn((bg, d.cond_channels, d.cond_dim), generator=gen, device=dev)
+    x_T = ed.sigma_max * torch.randn((bg, d.seq_len), generator=gen, device=dev)
+    noise = torch.randn((n, bg, d.seq_len), generator=gen, device=dev)
+    return x_T, cs.churn_tables(w, ed, compute_input_emb(w.aux, z), n), noise
+
+
+def _churn_step(w, x_T, tables, noise, s: int):
+    embin, tA, tB, cA, cB = tables
+    return cs.churn_step_apply(w, x_T, embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+
+
+def _churn_steps(w, x_T, tables, noise, n: int, step=cs.churn_step_apply):
+    """The state after the first ``n`` churn steps (``step``: the kernel's
+    wrapper, or ``churn_step_plain`` with its clamp argument bound)."""
+    embin, tA, tB, cA, cB = tables
+    x = x_T
+    for s in range(n):
+        x = step(w, x, embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+    return x
+
+
+def staging(dev, gen) -> None:
+    """Print block 0's tensor-core products by path for one launch of each
+    float32 churn kernel (2-step tables: 4 network evaluations a sampler
+    launch, 2 a step launch) at the fpc and ppc EDM denoisers."""
+    root = BUILD_DIR / "staging"
+    libs = _build({"staging": _STAGING}, _CHURN, root=root.name)["staging"]
+    reads = [ctypes.CDLL(str(root / "0" / f"{src}.so")).gl_staging_counts for src in _CHURN]
+    ns = load_library()
+    own = ns.gl_churn_sample, ns.gl_churn_step
+    try:
+        ns.gl_churn_sample, ns.gl_churn_step = libs.gl_churn_sample, libs.gl_churn_step
+        for label, cfg, bg in (("fpc", {}, 4096), ("ppc", _PPC, 1024)):
+            _, ddm, ed = build_flagship(FlagshipConfig(elucidated=True, **cfg),
+                                        generator=torch.Generator().manual_seed(0), device=dev)
+            dims = _denoiser_dims(ddm)
+            w = sc.PackedNet(pack_math_weights(ddm, dims), dims, torch.float32, dev)
+            x_T, tables, noise = _churn_operands(w, ed, bg, gen, dev, 2)
+            for name, read, call in (
+                    ("churn_sampler_kernel", reads[0],
+                     lambda: cs.churn_sampler_apply(w, x_T, *tables, noise)),
+                    ("churn_step_kernel", reads[1],
+                     lambda: _churn_step(w, x_T, tables, noise, 0))):
+                got = (ctypes.c_ulonglong * 3)()
+                for run in (False, True):  # the first read clears what came before
+                    if run:
+                        call()
+                    torch.cuda.synchronize()
+                    if read(got) != 0:
+                        raise RuntimeError("gl_staging_counts failed")
+                print(f"staging {name} fp32 {label} L={dims.seq_len} BG={bg}, block 0: "
+                      f"{got[0]} staged, {got[1]} value by value (width off the k-step), "
+                      f"{got[2]} value by value (no room)", flush=True)
+                if got[2]:
+                    raise AssertionError(f"{name}: {got[2]} products found no room")
+    finally:
+        ns.gl_churn_sample, ns.gl_churn_step = own
+
+
 def main(argv=None) -> None:
-    from ..models import cuda_sampler as cs
     from ..diffusion import DiffusionSchedule
 
     p = argparse.ArgumentParser(description=__doc__.strip().splitlines()[0])
     p.add_argument("variants", nargs="*", help=f"default: all of {list(VARIANTS)}")
-    names = p.parse_args(argv).variants or list(VARIANTS)
+    p.add_argument("--kernels", nargs="+", choices=list(_BUILT), default=list(_BUILT),
+                   help="the timed calls (default: all)")
+    p.add_argument("--staging", action="store_true",
+                   help="also count the churn kernels' products by path")
+    args = p.parse_args(argv)
+    names = args.variants or list(VARIANTS)
     if "as built" not in names:
         names = ["as built"] + names
+    kernels = set(args.kernels)
     dev = resolve_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     print(device_line(dev), flush=True)
     load_library()
-    libs = _build(names)
     gen = torch.Generator(device=dev).manual_seed(0)
+    if args.staging:
+        staging(dev, gen)
+    sources = sorted({f for k in kernels for f in _BUILT[k]})
+    libs = _build({n: VARIANTS[n] for n in names}, sources)
 
-    def report(label, ms, err=None, chain=None):
-        parts = [f"{n} {ms[n]:.3f} ms" + (f" (err {err[n]:.2e})" if err else "") for n in names]
+    def report(label, ms, err=None, chain=None, what="err"):
+        parts = [f"{n} {ms[n]:.3f} ms" + (f" ({what} {err[n]:.2e})" if err else "")
+                 for n in names]
         print(f"{label}" + (f", chain err {chain:.2e}" if chain is not None else "") + ": "
               + " | ".join(parts), flush=True)
 
-    for cfg, shapes in (({}, ((torch.float32, 8192), (torch.float32, 4096),
-                              (torch.bfloat16, 4096))),
-                        (dict(pc_latent_size=256, grasp_latent_size=16),
-                         ((torch.float32, 2048),))):
-        vae, ddm, diff = build_flagship(FlagshipConfig(elucidated=True, **cfg),
-                                        generator=torch.Generator().manual_seed(0), device=dev)
+    for cfg, shapes, churn in (({}, ((torch.float32, 8192), (torch.float32, 4096),
+                                     (torch.bfloat16, 4096)), 4096),
+                               (_PPC, ((torch.float32, 2048),), 1024)):
+        vae, ddm, ed = build_flagship(FlagshipConfig(elucidated=True, **cfg),
+                                      generator=torch.Generator().manual_seed(0), device=dev)
         dims = _denoiser_dims(ddm)
         math_w = pack_math_weights(ddm, dims)
-        for dt, bg in shapes:
+        for dt, bg in shapes if "full" in kernels else ():
             w = sc.PackedNet(math_w, dims, dt, dev)
             x, emb = _full_operands(w, bg, gen, dev)
             ref = sc.full_plain(w, x, emb).float()
@@ -204,20 +357,45 @@ def main(argv=None) -> None:
             call = lambda: sc.full_apply(w, x, emb)  # noqa: E731
             report(f"full_kernel {'fp32' if dt == torch.float32 else 'bf16'} L={dims.seq_len} "
                    f"BG={bg}", _turns(libs, "gl_full_forward", call, 10),
-                   _errors(libs, call, ref), chain / top)
+                   _errors(libs, "gl_full_forward", call, ref), chain / top)
+        for dt in (torch.bfloat16, torch.float32) if "churn" in kernels else ():
+            w = sc.PackedNet(math_w, dims, dt, dev)
+            x_T, tables, noise = _churn_operands(w, ed, churn, gen, dev)
+            tag = f"{'fp32' if dt == torch.float32 else 'bf16'} L={dims.seq_len} BG={churn}"
+            # and over a 2-step trajectory (TOL_BF16_EDM_STEP_MEAN, 2^-10.5 = 6.9e-4)
+            x2, t2, n2 = _churn_operands(w, ed, churn, gen, dev, 2)
+            ref2 = cs.churn_sampler_plain(w, x2, *t2, n2, False)
+            report(f"churn_sampler_kernel {tag} x 100 steps",
+                   _turns(libs, "gl_churn_sample",
+                          lambda: cs.churn_sampler_apply(w, x_T, *tables, noise), 2),
+                   _errors(libs, "gl_churn_sample",
+                           lambda: cs.churn_sampler_apply(w, x2, *t2, n2), ref2.float(), True),
+                   what="2-step trajectory mean err")
+            # the bf16 rounding points: the mean error of the first 3 steps
+            # (chip_smoke.py's TOL_BF16_STEP_MEAN["churn"], 2^-22 = 2.4e-7)
+            ref = _churn_steps(w, x_T, tables, noise, 3,
+                               lambda *a: cs.churn_step_plain(*a, False))
+            report(f"churn_step_kernel {tag}, one launch (step 50)",
+                   _turns(libs, "gl_churn_step",
+                          lambda: _churn_step(w, x_T, tables, noise, 50), 10),
+                   _errors(libs, "gl_churn_step",
+                           lambda: _churn_steps(w, x_T, tables, noise, 3), ref.float(), True),
+                   what="3-step mean err")
     vae, ddm, diff = build_flagship(FlagshipConfig(), generator=torch.Generator().manual_seed(0),
                                     device=dev)
     dims = _denoiser_dims(ddm)
     sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
     z = torch.randn((4096, 3, dims.cond_dim), generator=gen, device=dev)
     x_T = torch.randn((4096, dims.seq_len), generator=gen, device=dev)
-    for dt in (torch.bfloat16, torch.float32):
+    for dt in (torch.bfloat16, torch.float32) if "ddim" in kernels else ():
         w = sc.PackedNet(pack_math_weights(ddm, dims), dims, dt, dev)
         tables = cs.sampler_tables(w, sched, compute_input_emb(w.aux, z), 100, "ddim",
                                    "fixed_large")
         report(f"ddim_sampler_kernel {'fp32' if dt == torch.float32 else 'bf16'} L=4 BG=4096 "
                f"x 100 steps", _turns(libs, "gl_ddim_sample",
                                       lambda: cs.sampler_apply(w, x_T, *tables), 2))
+    if "stage" not in kernels:
+        return
     dd = decoder_dims_for(vae)
     wd = sc.PackedNet(pack_math_weights(vae.decoder.net, dd), dd, torch.bfloat16, dev)
     embd = torch.randn((4096, dd.cond_channels * dd.emb_dim), generator=gen,

@@ -575,7 +575,8 @@ EDM_TOLS = {torch.float32: {6: (1e-4, None)},
 def test_edm_sampler_kernels_match_plain_on_card(cuda, nets, dtype, L):
     """dpmpp_sampler_kernel and churn_sampler_kernel against their plain
     versions at L = 4 (fpc) and L = 16 (ppc), over a BG that is ragged at
-    every block size (16, 9, 4 and 2 rows), for 6 steps and (bf16) 2."""
+    every block size (16, 9, 8, 4 and 2 rows; 8: the float32 churn kernels'
+    fpc block, which runs the tensor cores), for 6 steps and (bf16) 2."""
     math, dims = nets["den"][L]
     w = sc.PackedNet(math, dims, dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -634,7 +635,8 @@ def test_ddim_sampler_kernel_matches_plain_at_l16_on_card(cuda, nets, dtype):
 def test_step_kernels_match_plain_steps_on_card(cuda, nets, dtype, L):
     """ddim_step_kernel (DDIM and DDPM), dpmpp_step_kernel and
     churn_step_kernel against their plain steps at L = 4 (fpc) and 16
-    (ppc), over a BG ragged at every block size, 2 chained steps, every
+    (ppc), over a BG ragged at every block size (16, 9, 8, 4 and 2 rows; 8:
+    the float32 churn_step_kernel's fpc block), 2 chained steps, every
     state held: float32 to 1e-4 of max(1, max|state|); bfloat16 to the
     sampler limits of the tests above (DDIM absolute 2^-4 on clipped
     states; EDM 2^-4 max and 2^-10.5 mean of max|state|, their 2-step
@@ -670,7 +672,8 @@ def test_step_kernels_match_plain_steps_on_card(cuda, nets, dtype, L):
 def test_step_launches_match_whole_trajectory_kernel_on_card(cuda, nets, sampler):
     """S step-kernel launches end where the whole-trajectory kernel does:
     float32, 5 steps, to 1e-4 of max(1, max|x_0|) (the same step body and
-    block plan; chip_smoke.py reports whether they are bitwise equal)."""
+    block plan: for churn both on the tensor cores in 8-row blocks;
+    chip_smoke.py reports whether they are bitwise equal)."""
     math, dims = nets["den"][4]
     w = sc.PackedNet(math, dims, torch.float32, cuda)
     run = _trajectory_run(w, sampler, 37, 5, torch.Generator(device=cuda).manual_seed(10))
@@ -679,6 +682,89 @@ def test_step_launches_match_whole_trajectory_kernel_on_card(cuda, nets, sampler
     torch.cuda.synchronize()
     scale = max(1.0, whole.abs().max().item())
     torch.testing.assert_close(x0[:, 0], whole, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("channels", [(8, 16), (16, 32)])
+def test_churn_kernels_take_narrow_models_on_card(cuda, channels, dtype):
+    """churn_sampler_kernel and churn_step_kernel at widths off the
+    tensor cores' 16-wide tiles (the init conv's 4 channels, 8-wide stages):
+    float32 runs the split with zero-padded K and N in the fragments and A
+    read value by value, bf16 the CUDA-core body. Over a ragged BG, against
+    their plain versions within EDM_TOLS (6 steps) and the 2-step limits of
+    test_step_kernels_match_plain_steps_on_card."""
+    torch.manual_seed(1)
+    ddm = GraspLatentDDM(block_channels=channels, dropout=None).eval()
+    dims = _denoiser_dims(ddm)
+    w = sc.PackedNet(pack_math_weights(ddm, dims), dims, dtype, cuda)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    BG, N, ed = 37, 6, ElucidatedDiffusion(n_dims=4)
+    z_pc = torch.randn(BG, 3, dims.cond_dim, generator=g, device=cuda)
+    tables = cs.churn_tables(w, ed, compute_input_emb(w.aux, z_pc), N)
+    x_T = 80.0 * torch.randn(BG, 4, generator=g, device=cuda)
+    noise = torch.randn(N, BG, 4, generator=g, device=cuda)
+    got = cs.churn_sampler_apply(w, x_T, *tables, noise)
+    torch.cuda.synchronize()
+    ref = cs.churn_sampler_plain(w, x_T, *tables, noise, False)
+    tol, tol_mean = EDM_TOLS[dtype][6]
+    scale = max(1.0, ref.abs().max().item())
+    torch.testing.assert_close(got, ref, rtol=0, atol=tol * scale)
+    if tol_mean is not None:
+        assert (got - ref).abs().mean().item() <= tol_mean * scale
+    embin, tA, tB, cA, cB = tables
+    xk = xp = x_T
+    for s in range(2):
+        xk = cs.churn_step_apply(w, xk, embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+        torch.cuda.synchronize()
+        xp = cs.churn_step_plain(w, xp, embin, tA[s], tB[s], cA[s], cB[s], noise[s], False)
+        scale = max(1.0, xp.abs().max().item())
+        if dtype == torch.float32:
+            torch.testing.assert_close(xk, xp, rtol=0, atol=1e-4 * scale)
+        else:
+            torch.testing.assert_close(xk, xp, rtol=0, atol=2.0 ** -4 * scale)
+            assert (xk - xp).abs().mean().item() <= 2.0 ** -10.5 * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [4, 16])
+def test_float32_churn_step_kernel_within_the_cuda_core_control_on_card(cuda, nets, L):
+    """chip_smoke.py's CUDA-core control of the float32 churn_step_kernel
+    (the exact bf16 split on the tensor cores) at a small BG: on step 3 of
+    6, from the state its own launches reached, its error against
+    churn_step_plain within SPLIT_VS_CUDA_CORES of the error of the same
+    plain step whose two network evaluations run the float32 stage chain
+    (stage_kernel x 4 + final_kernel, the CUDA cores; the init conv and
+    the FiLM input as the plain step computes them)."""
+    from unittest import mock
+
+    math, dims = nets["den"][L]
+    w = sc.PackedNet(math, dims, torch.float32, cuda)
+    g = torch.Generator(device=cuda).manual_seed(14)
+    BG, N, s, ed = 257, 6, 3, ElucidatedDiffusion(n_dims=L)
+    z_pc = torch.randn(BG, 3, dims.cond_dim, generator=g, device=cuda)
+    input_emb = compute_input_emb(w.aux, z_pc)
+    x_T = 80.0 * torch.randn(BG, L, generator=g, device=cuda)
+    noise = torch.randn(N, BG, L, generator=g, device=cuda)
+    x = cs.fused_sample_churn(w, ed, input_emb, x_T, N, noise=noise,
+                              return_trajectory=True)[1][s, :, 0].contiguous()
+    embin, tA, tB, cA, cB = cs.churn_tables(w, ed, input_emb, N)
+    ops = (embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+
+    def chain_net(wn, x_in, embin_, trow):
+        emb = torch.nn.functional.silu(embin_ + trow).to(wn.dtype)
+        h = sc.init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
+        for i in range(len(wn.dims.block_channels)):
+            h = sc.stage_apply(wn, i, h, emb)
+        return sc.final_apply(wn, h, emb).float()
+
+    got = cs.churn_step_apply(w, x, *ops)
+    ref = cs.churn_step_plain(w, x, *ops, False)
+    with mock.patch.object(cs, "_net_plain", chain_net):
+        chain = cs.churn_step_plain(w, x, *ops, False)
+    torch.cuda.synchronize()
+    err, chain_err = ((t - ref).abs().max().item() for t in (got, chain))
+    assert err <= SPLIT_VS_CUDA_CORES * chain_err, (err, chain_err)
 
 
 def _seeded_ldm(device, seed):
