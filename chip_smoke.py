@@ -17,7 +17,8 @@ any phase fails (every phase runs; the failures are listed at the end):
    ``dpmpp_sampler_kernel`` (32 steps) and ``churn_sampler_kernel`` (100
    steps) at fpc, and all three sampler kernels at the ppc denoiser's
    L = 16 (checked at BG = 1021 over 8 steps, then checked and timed at
-   BG = 1024 with their full step counts); the EDM kernels' bf16 rounding
+   BG = 1024 with their full step counts; the float32 DDIM kernel also as
+   DDPM, checked only); the EDM kernels' bf16 rounding
    points are also held over 2 steps at both, against bf16's own spread.
    Then the control: ``ddim_sampler_kernel``'s bf16 ms a step (its
    products on the tensor cores) beside ``dpmpp_sampler_kernel``'s (the
@@ -28,14 +29,17 @@ any phase fails (every phase runs; the failures are listed at the end):
    (BG = 4096) and ppc (BG = 1024), both also at a ragged BG = 1021, timed
    per launch at BG = 4096 / 1024, and their whole chains (one launch per
    step) against the whole-trajectory kernels at the main paths' shapes.
-   The float32 churn kernels run their products on the tensor cores
-   through the exact bf16 split (the bf16 ones on the CUDA cores); the
-   float32 ``churn_step_kernel`` is held against two controls on one
-   mid-trajectory step at fpc and ppc: its error within
+   The float32 DDIM and churn kernels run their products on the tensor
+   cores through the exact bf16 split (the bf16 ``ddim_step_kernel`` and
+   churn kernels on the CUDA cores); the float32 ``ddim_step_kernel`` (also
+   held as DDPM) and ``churn_step_kernel`` are held against two controls on
+   one mid-trajectory step at fpc and ppc: their error within
    ``SPLIT_VS_CUDA_CORES`` times that of the same step through the float32
    stage chain (the CUDA cores), and a bf16 network's error above
-   ``TOL_FP32``; the float32 pack (which builds the split's copies) is
-   timed beside the float32 churn calls;
+   ``TOL_FP32`` (logged only for DDIM, whose one step scales the network's
+   error down below it; the float32 DDIM kernels are held to both controls
+   over the whole trajectory instead); the float32 pack (which builds the
+   split's copies) is timed beside the float32 churn calls;
 4. the DDIM main path: the full-width fpc flagship (random weights from a
    seeded ``torch.Generator``), ``ldm_generate`` for 4 clouds x 1024
    points, 1024 grasps each, 100 DDIM steps, bf16 kernels (twice: the first
@@ -57,7 +61,9 @@ any phase fails (every phase runs; the failures are listed at the end):
    flagship (``denoiser_dtype="bfloat16"``: a float32 denoiser, as
    conditioned denoisers always are, and a bf16 decoder), 4 clouds x 1024
    grasps, DDIM 100, once unguided (``ddim_sampler_kernel`` with the class
-   embedding folded in) and once with ``cfg_scale=2`` (one ``full_kernel``
+   embedding folded in), once unguided with ``return_trajectory`` (100
+   float32 ``ddim_step_kernel`` launches, 51 decodes, every decoded state's
+   poses checked) and once with ``cfg_scale=2`` (one ``full_kernel``
    launch per step over the doubled batch); the unconditional bf16 fpc
    flagship with success guidance (DDIM 100) and the EDM fpc flagship with
    success guidance (DPM++ 32); the region-conditioned EDM ppc flagship
@@ -118,10 +124,11 @@ any phase fails (every phase runs; the failures are listed at the end):
    ragged R = 1021, each timed beside its plain version, its one-rep time
    and one PyTorch library call (times the reps), after the SASS of every
    built library is read for tensor-core (HMMA) instructions: the three
-   forms of ``mm_chain_kernel``, ``bcast_chain_kernel`` matmul, the bf16
-   ``ddim_sampler_kernel`` and ``stage_kernel``, both ``full_kernel``
-   instances and the float32 ``churn_sampler_kernel`` and
-   ``churn_step_kernel`` issue them, every other kernel none, and no
+   forms of ``mm_chain_kernel``, ``bcast_chain_kernel`` matmul, both
+   ``ddim_sampler_kernel`` and ``full_kernel`` instances, the bf16
+   ``stage_kernel`` and the float32 ``ddim_step_kernel``,
+   ``churn_sampler_kernel`` and ``churn_step_kernel`` issue them, every
+   other kernel none, and no
    kernel a TF32 one (the bound of every SiLU form is printed beside its
    time; the library call, ``F.silu``, computes the ``f32`` form only);
    then the main
@@ -692,7 +699,8 @@ def control_phase(run: Run) -> None:
 def sampler_runs(w, ed, input_emb, x_unit, noise, steps: dict, sched=None):
     """(name, kind, kernel call, plain call, evaluations per row, operands)
     for the EDM kernels and, given a DDPM schedule, the DDIM kernel, over
-    the rows of ``x_unit`` (unit normals; EDM starts at sigma_max times it).
+    the rows of ``x_unit`` (unit normals; EDM starts at sigma_max times it),
+    and in float32 the DDIM kernel as DDPM too (``noise``'s first steps).
     Churn needs 2N - 1 network evaluations: the last step's second one
     cannot reach x_0 (sigma_next = 0). The kernel runs it anyway
     (csrc/churn_sampler.cu says why); the bound counts only what is needed."""
@@ -715,6 +723,12 @@ def sampler_runs(w, ed, input_emb, x_unit, noise, steps: dict, sched=None):
         runs.insert(0, ("ddim_sampler_kernel", "ddim", lambda: cs.sampler_apply(w, x_unit, *tb),
                         lambda: cs.sampler_plain(w, x_unit, *tb, None, True, 1.0), S,
                         (x_unit, *tb)))
+        if w.dtype == torch.float32:  # DDPM, held at TOL_FP32 (not timed)
+            tp, nzp = cs.sampler_tables(w, sched, input_emb, S, "ddpm", "fixed_large"), noise[:S]
+            runs.insert(1, ("ddim_sampler_kernel", "ddpm",
+                            lambda: cs.sampler_apply(w, x_unit, *tp, nzp),
+                            lambda: cs.sampler_plain(w, x_unit, *tp, nzp, True, 1.0), S,
+                            (x_unit, *tp, nzp)))
     return runs
 
 
@@ -729,30 +743,32 @@ def hold(run: Run, w, runs, steps: dict, config: str, bg: int, mode: str, refs: 
     for name, kind, kern, plain, evals, ops in runs:
         ref = plain()
         if mode == "short" and tag == "fp32":
-            refs[(name, mode)] = ref  # the spread's reference only (see TOL_BF16_EDM_STEP_MEAN)
+            refs[(kind, mode)] = ref  # the spread's reference only (see TOL_BF16_EDM_STEP_MEAN)
             continue
         got = kern()
         torch.cuda.synchronize()
-        ddim = kind == "ddim"
+        ddim = kind in ("ddim", "ddpm")
+        n = steps["ddim" if ddim else kind]
         if tag == "fp32":
             tols = (TOL_FP32, None)
         elif ddim:
             tols = (TOL_BF16_SAMPLER, None)
         else:
             tols = (TOL_BF16_EDM, TOL_BF16_EDM_STEP_MEAN if mode == "short" else TOL_BF16_EDM_MEAN)
-        err = run.compare(f"{name} {config} L={L} BG={bg} x {steps[kind]} steps", got, ref,
+        err = run.compare(f"{name} {kind} {config} L={L} BG={bg} x {n} steps", got, ref,
                           *tols, absolute=tag == "bf16" and ddim)
-        r = run.record(name, config, L, full_bg, full_steps[kind], tag)
-        r.setdefault("err_checked_at", []).append(dict(BG=bg, steps=steps[kind], max_abs_err=err))
+        r = run.record(name, config, L, full_bg, full_steps["ddim" if ddim else kind], tag)
+        r.setdefault("err_checked_at", []).append(
+            dict(BG=bg, steps=n, max_abs_err=err, **({"sampler": kind} if ddim else {})))
         if mode == "full":
-            r["err"] = err
+            r["err"] = max(err, r.get("err", 0.0))
         if tag == "fp32":
-            refs[(name, mode)] = ref
+            refs[(kind, mode)] = ref
         elif mode != "ragged":
             key = "bf16_vs_fp32_plain" + ("_short" if mode == "short" else "")
-            r[key] = spread(run, name, ref, refs[(name, mode)],
+            r[key] = spread(run, name, ref, refs[(kind, mode)],
                             TOL_BF16_EDM_STEP_MEAN if mode == "short" else None)
-        if mode == "full":
+        if mode == "full" and kind != "ddpm":
             k_ms = cuda_ms(kern, 3)
             p_ms = cuda_ms(plain, 2)
             r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, *ops))
@@ -824,14 +840,15 @@ def steppers(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
     carry)``, the carry being DPM++'s previous denoised estimate."""
     from graspldm_tpu_torch.models import cuda_sampler as cs
 
-    if kind == "ddim":
-        embin, trows, coefs = cs.sampler_tables(w, sched, input_emb, n, "ddim", "fixed_large")
+    if kind in ("ddim", "ddpm"):
+        embin, trows, coefs = cs.sampler_tables(w, sched, input_emb, n, kind, "fixed_large")
+        nz = noise if kind == "ddpm" else [None] * n
 
         def k(s, x, c):
-            return cs.ddim_step_apply(w, x, embin, trows[s], coefs[s]), None
+            return cs.ddim_step_apply(w, x, embin, trows[s], coefs[s], nz[s]), None
 
         def p(s, x, c):
-            return cs.ddim_step_plain(w, x, embin, trows[s], coefs[s], None, True, 1.0), None
+            return cs.ddim_step_plain(w, x, embin, trows[s], coefs[s], nz[s], True, 1.0), None
 
         return x_unit, None, k, p, 1, (x_unit, embin, trows[0], coefs[0])
     x_T = (ed.sigma_max * x_unit).contiguous()
@@ -868,15 +885,23 @@ def step_tols(tag: str, kind: str):
     return (TOL_BF16_SAMPLER if kind == "ddim" else TOL_BF16_EDM), TOL_BF16_STEP_MEAN[kind]
 
 
+# the per-step kernels' samplers in step_kernel_phase: DDPM (ddim_step_kernel
+# with noise) in float32 only, where TOL_FP32 holds it as it holds DDIM
+STEP_KINDS = {"fp32": ("ddim", "ddpm", "dpmpp", "churn"), "bf16": ("ddim", "dpmpp", "churn")}
+# the float32 step kernels that run their products on the tensor cores
+# (the exact bf16 split), held against the split controls
+SPLIT_STEP_KINDS = ("ddim", "churn")
+
+
 def chain_vs_whole(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
     """x_0 of n step-kernel launches (``fused_sample*(return_trajectory=
     True)``) and of the whole-trajectory kernel, on the same inputs, and the
     launches' trajectory."""
     from graspldm_tpu_torch.models import cuda_sampler as cs
 
-    if kind == "ddim":
+    if kind in ("ddim", "ddpm"):
         def run(traj):
-            return cs.fused_sample(w, sched, input_emb, x_unit, n, "ddim",
+            return cs.fused_sample(w, sched, input_emb, x_unit, n, kind, noise=noise[:n],
                                    return_trajectory=traj)
     elif kind == "dpmpp":
         def run(traj):
@@ -892,10 +917,12 @@ def chain_vs_whole(w, kind: str, sched, ed, input_emb, x_unit, noise, n: int):
 
 def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) -> None:
     """The three per-step kernels at ``config``'s denoiser against their
-    plain steps: STEP_CHAIN chained steps of each at BG = ``bg_full`` and
-    RAGGED_BG, one launch timed at ``bg_full`` (mid-trajectory), and the
-    whole chain of TRAJ_STEPS launches against the whole-trajectory kernel
-    at ``bg_full``."""
+    plain steps: STEP_CHAIN chained steps of each (``ddim_step_kernel``
+    also as DDPM in float32) at BG = ``bg_full`` and RAGGED_BG, one launch
+    timed at ``bg_full`` (mid-trajectory), and the whole chain of
+    TRAJ_STEPS launches against the whole-trajectory kernel at ``bg_full``.
+    The float32 kernels on the split are held against the split controls
+    (``step_controls``; DDIM also ``trajectory_controls``)."""
     from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
     from graspldm_tpu_torch.models.stacked_cuda import PackedNet
     from graspldm_tpu_torch.models.stacked_denoiser import compute_input_emb, pack_math_weights
@@ -914,8 +941,9 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
         for bg in (RAGGED_BG, bg_full):
             log(f"[kernels] step kernels {config} {tag}, L={L}, BG={bg}")
             input_emb = compute_input_emb(w.aux, z_pc[:bg])
-            for kind, n in TRAJ_STEPS.items():
-                name = STEP_KERNEL[kind]
+            for kind in STEP_KINDS[tag]:
+                base = "ddim" if kind == "ddpm" else kind  # the kernel's sampler
+                n, name = TRAJ_STEPS[base], STEP_KERNEL[base]
                 x0, c0, kstep, pstep, evals, ops = steppers(
                     w, kind, sched, ed, input_emb, x_unit[:bg].contiguous(),
                     noise[:, :bg].contiguous(), n)
@@ -927,9 +955,10 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
                     xp, cp = pstep(s, xp, cp)
                     err = max(err, run.compare(f"{name} {kind} {config} BG={bg} step {s}", xk, xp,
                                                tol, tol_mean))
-                r = run.record(name, config, L, bg_full, 1, tag, what=f"one {kind} step per launch")
+                r = run.record(name, config, L, bg_full, 1, tag, what=f"one {base} step per launch")
                 r.setdefault("err_checked_at", []).append(
-                    dict(BG=bg, steps=STEP_CHAIN, max_abs_err=err))
+                    dict(BG=bg, steps=STEP_CHAIN, max_abs_err=err,
+                         **({"sampler": kind} if kind == "ddpm" else {})))
                 if tag == "fp32":
                     fp32_states[(kind, bg)] = xp
                 else:
@@ -938,62 +967,120 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
                                         fp32_states[(kind, bg)], TOL_BF16_STEP_MEAN[kind])))
                 if bg != bg_full:
                     continue
-                r["err"] = err
-                s_mid = n // 2
-                k_ms = cuda_ms(lambda: kstep(s_mid, x0, c0), 10)
-                p_ms = cuda_ms(lambda: pstep(s_mid, x0, c0), 3)
-                r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, *ops))
-                log(f"  {name} {kind}: kernel {k_ms:.3f} ms per launch, plain {p_ms:.3f} ms; "
-                    f"bound {r['bound_ms']:.4f} ms ({bound_way(r)})")
+                r["err"] = max(err, r.get("err", 0.0))
+                if kind != "ddpm":
+                    s_mid = n // 2
+                    k_ms = cuda_ms(lambda: kstep(s_mid, x0, c0), 10)
+                    p_ms = cuda_ms(lambda: pstep(s_mid, x0, c0), 3)
+                    r.update(ms=k_ms, plain_ms=p_ms, **sampler_bound(w, evals, bg, *ops))
+                    log(f"  {name} {kind}: kernel {k_ms:.3f} ms per launch, plain {p_ms:.3f} ms; "
+                        f"bound {r['bound_ms']:.4f} ms ({bound_way(r)})")
                 chain, whole, traj = chain_vs_whole(w, kind, sched, ed, input_emb, x_unit,
                                                     noise, n)
                 torch.cuda.synchronize()
                 cw = (TOL_FP32, None, False) if tag == "fp32" else (
                     (TOL_BF16_SAMPLER, None, True) if kind == "ddim"
                     else (TOL_BF16_EDM, TOL_BF16_EDM_MEAN, False))
-                e = run.compare(f"{name} x {n} launches vs the whole-trajectory kernel "
+                e = run.compare(f"{name} {kind} x {n} launches vs the whole-trajectory kernel "
                                 f"{config} BG={bg}", chain, whole, *cw)
                 bitwise = bool(torch.equal(chain, whole))
-                log(f"  bitwise equal to the whole-trajectory kernel: {bitwise}")
-                r["chain_vs_whole"] = dict(steps=n, max_abs_err=e, bitwise_equal=bitwise)
-                if tag == "fp32" and kind == "churn":
-                    r["split_controls"] = churn_controls(
-                        run, f"{name} {config} BG={bg}", w, math_w, traj, input_emb, ed, noise,
-                        n)
+                log(f"  {name} {tag} {kind}: {n} launches bitwise equal to the whole-trajectory "
+                    f"kernel: {bitwise}")
+                cvw = dict(steps=n, max_abs_err=e, bitwise_equal=bitwise)
+                if kind == "ddpm":
+                    r["chain_vs_whole_ddpm"] = cvw
+                    continue
+                r["chain_vs_whole"] = cvw
+                if tag == "fp32" and kind in SPLIT_STEP_KINDS:
+                    label = f"{name} {config} BG={bg}"
+                    r["split_controls"] = step_controls(
+                        run, label, kind, w, math_w, traj, sched, ed, input_emb, noise, n)
+                    if kind == "ddim":
+                        r["trajectory_controls"] = trajectory_controls(
+                            run, label, w, math_w, sched, input_emb, x_unit, n,
+                            {f"x {n} launches": chain, "ddim_sampler_kernel": whole})
 
 
-def churn_controls(run: Run, label: str, w, math_w, traj, input_emb, ed, noise, n: int) -> dict:
-    """``split_controls`` for the float32 ``churn_step_kernel``, on step
-    n // 2 from the state its launches reached there (``traj``): its error
-    against ``churn_step_plain`` within ``SPLIT_VS_CUDA_CORES`` of the error
-    of the same plain step whose two network evaluations run the float32
-    stage chain (the CUDA cores; the init conv and the FiLM input as the
-    plain step computes them); and the same plain step with a bf16 network
-    (the bf16 pack, the same float32 tables and state), which must land
-    above ``TOL_FP32``."""
+def chain_net(wn, x_in, embin, trow):
+    """``cuda_sampler._net_plain`` with the float32 stage chain for its
+    network (the CUDA cores); the init conv and the FiLM input as the plain
+    version computes them."""
+    from graspldm_tpu_torch.models.stacked_cuda import init_conv
+
+    emb = torch.nn.functional.silu(embin + trow).to(wn.dtype)
+    h = init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
+    return stage_chain(wn, h, emb).float()
+
+
+def step_controls(run: Run, label: str, kind: str, w, math_w, traj, sched, ed, input_emb,
+                  noise, n: int) -> dict:
+    """``split_controls`` for a float32 step kernel on the split
+    (``ddim_step_kernel``, ``churn_step_kernel``), on step n // 2 from the
+    state its launches reached there (``traj``): its error against its
+    plain step within ``SPLIT_VS_CUDA_CORES`` of the error of the same plain
+    step whose network evaluations run the float32 stage chain
+    (``chain_net``); and the same plain step with a bf16 network (the bf16
+    pack, the same float32 tables and state), held above ``TOL_FP32`` where
+    one step can show it. A DDIM step moves x by the network's error times
+    c1 * c3 (eps's weight in x0 times x0's in the update: 0.39 * 0.019 at
+    step 50 of 100), so a bf16 network lands below ``TOL_FP32`` there too
+    (1.0e-4 against 2.2e-4 of max|x| on 256 fpc rows on the CPU): its
+    reading is logged, and ``trajectory_controls`` holds it over the whole
+    trajectory."""
     from graspldm_tpu_torch.models import cuda_sampler as cs
-    from graspldm_tpu_torch.models.stacked_cuda import PackedNet, init_conv
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet
 
     s = n // 2
     x = traj[s][:, 0].contiguous()
-    embin, tA, tB, cA, cB = cs.churn_tables(w, ed, input_emb, n)
-    ops = (embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+    if kind == "ddim":
+        embin, trows, coefs = cs.sampler_tables(w, sched, input_emb, n, "ddim", "fixed_large")
+        ops = (embin, trows[s], coefs[s])
+        got = cs.ddim_step_apply(w, x, *ops)
 
-    def chain_net(wn, x_in, embin_, trow):
-        emb = torch.nn.functional.silu(embin_ + trow).to(wn.dtype)
-        h = init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
-        return stage_chain(wn, h, emb).float()
+        def plain(wn):
+            return cs.ddim_step_plain(wn, x, *ops, None, True, 1.0)
+    else:
+        embin, tA, tB, cA, cB = cs.churn_tables(w, ed, input_emb, n)
+        ops = (embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+        got = cs.churn_step_apply(w, x, *ops)
 
-    got = cs.churn_step_apply(w, x, *ops)
-    ref = cs.churn_step_plain(w, x, *ops, False)
+        def plain(wn):
+            return cs.churn_step_plain(wn, x, *ops, False)
+
+    ref = plain(w)
     with mock.patch.object(cs, "_net_plain", chain_net):
-        chain = cs.churn_step_plain(w, x, *ops, False)
-    bf16 = cs.churn_step_plain(PackedNet(math_w, w.dims, torch.bfloat16, w.device), x, *ops,
-                               False)
+        chain = plain(w)
+    bf16 = plain(PackedNet(math_w, w.dims, torch.bfloat16, w.device))
     torch.cuda.synchronize()
     return dict(step=s, **control_verdicts(
-        run, f"{label} step {s}", "churn_step_plain", "the same step through the fp32 stage "
-        "chain", got, ref, chain, bf16))
+        run, f"{label} step {s}", f"{kind}_step_plain", "the same step through the fp32 stage "
+        "chain", got, ref, chain, bf16, hold_bf16=kind != "ddim"))
+
+
+def trajectory_controls(run: Run, label: str, w, math_w, sched, input_emb, x_unit, n: int,
+                        outs: dict) -> dict:
+    """The split controls of the float32 DDIM kernels over a whole n-step
+    trajectory, for each x_0 of ``outs`` (what -> x_0): its error against
+    ``sampler_plain`` within ``SPLIT_VS_CUDA_CORES`` of the error of the
+    same plain steps through the float32 stage chain (``chain_net``), and
+    the plain steps with a bf16 network above ``TOL_FP32``."""
+    from graspldm_tpu_torch.models import cuda_sampler as cs
+    from graspldm_tpu_torch.models.stacked_cuda import PackedNet
+
+    tables = cs.sampler_tables(w, sched, input_emb, n, "ddim", "fixed_large")
+
+    def plain(wn):
+        return cs.sampler_plain(wn, x_unit, *tables, None, True, 1.0)
+
+    ref = plain(w)
+    with mock.patch.object(cs, "_net_plain", chain_net):
+        chain = plain(w)
+    bf16 = plain(PackedNet(math_w, w.dims, torch.bfloat16, w.device))
+    torch.cuda.synchronize()
+    return {what: control_verdicts(run, f"{label} {what}, x_0 of {n} steps", "sampler_plain",
+                                   f"the same {n} plain steps through the fp32 stage chain",
+                                   got, ref, chain, bf16)
+            for what, got in outs.items()}
 
 
 def full_operands(w, bg: int, gen, dev):
@@ -1089,7 +1176,7 @@ def split_packing_ms(math_w, dims, dev, reps: int = 5) -> dict:
     """Host milliseconds of a float32 ``PackedNet`` (every generation call
     packs its denoiser) and of the part of it that builds the exact split's
     fragment-ordered copies, which ``full_kernel<float>`` and the float32
-    churn kernels (``churn_sampler_kernel``, ``churn_step_kernel``) read."""
+    DDIM and churn kernels read."""
     from graspldm_tpu_torch.models import stacked_cuda as sc
 
     def ms(fn) -> float:
@@ -1129,11 +1216,12 @@ def split_controls(run: Run, name: str, w_bf16, x, emb, got, ref, chain) -> dict
 
 
 def control_verdicts(run: Run, name: str, ref_name: str, chain_name: str, got, ref, chain,
-                     bf16) -> dict:
+                     bf16, hold_bf16: bool = True) -> dict:
     """Log and hold a float32 tensor-core kernel's two controls: ``got``'s
     error against ``ref`` within ``SPLIT_VS_CUDA_CORES`` of ``chain``'s (the
     same function on the CUDA cores), and ``bf16``'s (a bf16 network) above
-    ``TOL_FP32``, both relative to max(1, max|ref|)."""
+    ``TOL_FP32`` (logged only, without ``hold_bf16``), both relative to
+    max(1, max|ref|)."""
     top = max(1.0, ref.abs().max().item())
     err, chain_err, bf16_err = ((t - ref).abs().max().item() for t in (got, chain, bf16))
     ratio = err / max(chain_err, 1e-30)
@@ -1145,10 +1233,10 @@ def control_verdicts(run: Run, name: str, ref_name: str, chain_name: str, got, r
         f"max(1, max|ref|) apart")
     log(f"  bf16 control: a bf16 network against {ref_name} {bf16_err:.3e} (rel "
         f"{bf16_err / top:.3e}), above TOL_FP32's {TOL_FP32 * top:.3e}: "
-        f"{'yes' if caught else 'NO'}")
+        f"{'yes' if caught else 'NO'}" + ("" if hold_bf16 else " (logged, not held here)"))
     if not ok:
         run.failures.append(f"{name}: {ratio:.2f}x the CUDA-core chain's error")
-    if not caught:
+    if hold_bf16 and not caught:
         run.failures.append(f"{name}: TOL_FP32 would pass a bf16 network")
     return dict(max_abs_err=err, cuda_core_chain_err=chain_err, vs_cuda_core_chain=ratio,
                 bf16_network_err=bf16_err, rel_apart_from_chain=apart)
@@ -1541,7 +1629,10 @@ def guided_phase(run: Run, cls_fpc, fpc, fpc_edm, region_ppc, dev) -> None:
     launch counts per call, every pose checked, and each guided call's wall
     time split into denoiser launches (``stacked_denoiser_apply`` with
     ``fuse_stages=True``), guidance VJPs (the success gradient) and the
-    rest (encode, packing, tables, sampler arithmetic, decode)."""
+    rest (encode, packing, tables, sampler arithmetic, decode); the
+    unguided class trajectory call's (float32 ``ddim_step_kernel``
+    launches) into sampler, decode and the rest, every decoded state's
+    poses checked."""
     from graspldm_tpu_torch.inference.pipeline import ldm_generate
 
     pc_n, meta = _normalized(dev, B, SEED)
@@ -1552,6 +1643,9 @@ def guided_phase(run: Run, cls_fpc, fpc, fpc_edm, region_ppc, dev) -> None:
     calls = [
         ("class fpc ddim, unguided", "fpc", cls_fpc, pc_n, meta, "ddim", STEPS,
          dict(cls_cond=cls), per_call("ddim_sampler_kernel")),
+        # the float32 ddim_step_kernel: one launch a step, 51 decodes
+        ("class fpc ddim, unguided, trajectory", "fpc", cls_fpc, pc_n, meta, "ddim", STEPS,
+         dict(cls_cond=cls, return_trajectory=True), per_trajectory_call("ddim", STEPS)),
         ("class fpc ddim, cfg", "fpc", cls_fpc, pc_n, meta, "ddim", STEPS,
          dict(cls_cond=cls, cfg_scale=CFG_SCALE), per_call_full(STEPS)),
         ("fpc ddim, success guidance", "fpc", fpc, pc_n, meta, "ddim", STEPS,
@@ -1570,20 +1664,32 @@ def guided_phase(run: Run, cls_fpc, fpc, fpc_edm, region_ppc, dev) -> None:
         log(f"[guided] {label}: B={b} x N={N_POINTS}, G={G}, {sampler} x {steps} steps "
             f"(denoiser {'fp32' if models[1].conditioning else 'bf16'}, decoder bf16)"
             + "".join(f", {k}={v}" for k, v in kw.items() if isinstance(v, float)))
+        traj = kw.get("return_trajectory", False)
         for i in range(2):
             times: dict = {}
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with split_times(times, {"stacked_denoiser_apply": "denoiser"},
-                             {"make_success_guidance": "guidance"}):
+            with (split_times(times) if traj else
+                  split_times(times, {"stacked_denoiser_apply": "denoiser"},
+                              {"make_success_guidance": "guidance"})):
                 out = ldm_generate(*models, pc, G, gen, num_inference_steps=steps,
                                    sampler=sampler, meta=m, **kw)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            den, vjp = times.get("denoiser", 0.0), times.get("guidance", 0.0)
-            log(f"  call {i + 1}: wall {wall:.3f} s = denoiser launches {den:.3f} s + guidance "
-                f"VJPs {vjp:.3f} s + rest {wall - den - vjp:.3f} s"
-                + (" (first call: set-up included)" if i == 0 else ""))
+            first = " (first call: set-up included)" if i == 0 else ""
+            if traj:
+                smp, dec = times["sampler"], times["decode"]
+                log(f"  call {i + 1}: wall {wall:.3f} s = sampler {smp:.3f} s + decode "
+                    f"{dec:.3f} s + rest {wall - smp - dec:.3f} s{first}")
+                A = out["all_diffusion_grasps"]
+                if tuple(out["latent_trajectory"].shape) != (steps + 1, b * G, 1, 4) or \
+                        tuple(A.shape) != (min(50, steps + 1), b, G, 4, 4):
+                    raise AssertionError(f"trajectory shapes {tuple(A.shape)}")
+                check_poses(A, f"all {A.shape[0]} decoded states")
+            else:
+                den, vjp = times.get("denoiser", 0.0), times.get("guidance", 0.0)
+                log(f"  call {i + 1}: wall {wall:.3f} s = denoiser launches {den:.3f} s + "
+                    f"guidance VJPs {vjp:.3f} s + rest {wall - den - vjp:.3f} s{first}")
             check_grasps(out, b, G)
             run.expect_more(f"guided {label}", config, **expect)
 
@@ -2282,7 +2388,8 @@ def sfu_rate(dev) -> float:
 # cores; every other kernel must issue no HMMA, and none a TF32 one
 TENSOR_CORE_KERNELS = {("mm_chain_kernel", "f32"), ("mm_chain_kernel", "bf16"),
                        ("mm_chain_kernel", "split"), ("bcast_chain_kernel", "matmul"),
-                       ("ddim_sampler_kernel", "bf16"), ("full_kernel", "bf16"),
+                       ("ddim_sampler_kernel", "bf16"), ("ddim_sampler_kernel", "fp32"),
+                       ("ddim_step_kernel", "fp32"), ("full_kernel", "bf16"),
                        ("full_kernel", "fp32"), ("stage_kernel", "bf16"),
                        ("churn_sampler_kernel", "fp32"), ("churn_step_kernel", "fp32")}
 
@@ -2290,8 +2397,9 @@ TENSOR_CORE_KERNELS = {("mm_chain_kernel", "f32"), ("mm_chain_kernel", "bf16"),
 def sass_check(run: Run) -> None:
     """``cuobjdump -sass`` of every built library: the kernels of
     TENSOR_CORE_KERNELS issue HMMA, every other kernel (the float32
-    ``ddim_sampler_kernel`` and ``stage_kernel``, ``final_kernel``, the DPM++
-    and the bf16 churn kernels among them) none, and no kernel a TF32 HMMA.
+    ``stage_kernel``, ``final_kernel``, the DPM++ kernels, the bf16
+    ``ddim_step_kernel`` and the bf16 churn kernels among them) none, and no
+    kernel a TF32 HMMA.
     Instances are named by their template argument (a micro-benchmark
     kernel's form, or bf16 / fp32)."""
     from graspldm_tpu_torch.cuda_build import library_path, nvcc_path
@@ -2455,7 +2563,8 @@ def kernels_line(run: Run) -> dict:
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
                for k in ("chain_ms", "timed_at", "unsplit_chain_ms", "attention_ms",
                          "chain_vs_unsplit", "reps1_ms", "vs_dpmpp_per_step", "packing",
-                         "split_controls") if k in t},
+                         "split_controls", "trajectory_controls", "chain_vs_whole_ddpm")
+               if k in t},
             **({"err_checked_at_fp32": fp["err_checked_at"]}
                if "err_checked_at" in fp and "bf16" in r else {}),
             "launches_per_call": run.per_call.get((name, config), {}),

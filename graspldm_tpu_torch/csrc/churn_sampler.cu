@@ -137,9 +137,11 @@ int launch_churn(const float* xT, const float* embin, const float* trowsA, const
                  const float* coefA, const float* coefB, const float* noise, const void* w,
                  const long long* net, float* out, int BG, int S, int L, int E, int Ce, int G,
                  int cmax, int clamp, cudaStream_t st) {
-  return launch_churn_rows<T>(churn_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 4), L,
-                              BG, st, xT, embin, trowsA, trowsB, coefA, coefB, noise, (const T*)w,
-                              net, out, BG, S, L, E, Ce, G, cmax, clamp);
+  return launch_tc_rows<T, kChurnThreads<T>>(churn_sampler_kernel<T>,
+                                             sampler_plan(L, cmax, E, Ce, G, 4), L, BG, st, xT,
+                                             embin, trowsA, trowsB, coefA, coefB, noise,
+                                             (const T*)w, net, out, BG, S, L, E, Ce, G, cmax,
+                                             clamp);
 }
 
 }  // namespace

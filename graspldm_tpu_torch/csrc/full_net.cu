@@ -81,10 +81,8 @@ full_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restr
 template <typename T>
 int launch_full(const void* x, const void* emb, const void* w, const long long* net, void* out,
                 int BG, int L, int E, int Ce, int G, int cmax, cudaStream_t st) {
-  const Plan p = full_plan(L, cmax, E, G);
-  return launch_rows_at<T, kTcThreads>(full_kernel<T>, p, tc_rows_per_block<T>(p, L), BG, st,
-                                       (const T*)x, (const T*)emb, (const T*)w, net, (T*)out, BG,
-                                       L, E, Ce, G, cmax);
+  return launch_tc_rows<T>(full_kernel<T>, full_plan(L, cmax, E, G), L, BG, st, (const T*)x,
+                           (const T*)emb, (const T*)w, net, (T*)out, BG, L, E, Ce, G, cmax);
 }
 
 }  // namespace

@@ -15,9 +15,9 @@
 // trajectory: no activation ever goes to device memory between ops or
 // steps), and reads each weight once per R rows.
 //
-// The bf16 ddim_sampler_kernel and the bf16 stage_kernel run their convs,
-// projections and the attention's wqkv / wo products on the tensor cores
-// (mma.sync.m16n8k16, float32 accumulators, 512 threads; tc_blocks.cuh):
+// ddim_sampler_kernel (both dtypes) and the bf16 stage_kernel run their
+// convs, projections and the attention's wqkv / wo products on the tensor
+// cores (mma.sync.m16n8k16, float32 accumulators, 512 threads; tc_blocks.cuh):
 // the block's R*L tokens are the product's M, A fragments come from the
 // activations in shared memory through ldmatrix, B from a fragment-ordered
 // bf16 copy of the weights made at packing time, found through the
@@ -30,10 +30,28 @@
 // fits the stage's dead QKV buffer. A decode's 4 launches at BG = 4096 take
 // 2.61-2.63 ms against 9.62-9.66 on the CUDA cores (chip_smoke.py, H100
 // 80GB HBM3, 700 W); the bound is 0.071 ms (bf16 peak).
-// final_kernel and the float32 stage_kernel and sampler keep the CUDA-core
-// body (resnet1d_blocks.cuh: one vector load of a weight row reused over a
+// ddim_sampler_kernel<float> (the conditioned denoisers' DDIM / DDPM) runs
+// full_kernel<float>'s body: the same products as six exact bf16 products
+// each (the weights' and the activations' three-part split, tc_blocks.cuh),
+// the function still the float32 one, in tc_rows_per_block's rows (8 at
+// fpc, where the plan fits 9; 2 at ppc). 100 steps at fpc BG = 4096 / ppc
+// BG = 1024 take 163.3 / 162.9 ms (on the CUDA cores at 256 threads:
+// 429.0 / 332.4, chip_smoke.py); its error against sampler_plain reads
+// 1.7e-6 / 1.3e-6. Against the sources with each decision undone
+// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W): 9 rows at fpc
+// 214.8 ms; the tensor-core body at 256 threads (its 8 warps, up to 255
+// registers: 235 and no spill) 168.1 / 164.4, and 109.8 / 108.2 against
+// 74.9 / 77.2 for the bf16 sampler; net_step not inlined 230.0 / 245.0.
+// Registers: 128 with 304 bytes of spill stores and 844 of loads in the
+// code (the float32 churn kernels: 400 and 1088); block 0 of a fpc
+// evaluation stages the three A parts of 24 products in the dead buffers
+// and reads 6 value by value (stage 0's 4-wide convs and wqkv, off the
+// 16-wide k-step), a ppc one stages all 30, and none lacks room
+// (--staging).
+// final_kernel and the float32 stage_kernel keep the CUDA-core body
+// (resnet1d_blocks.cuh: one vector load of a weight row reused over a
 // 4-token register tile, fp32 FMAs); the float32 stage chain is the
-// CUDA-core control of full_kernel<float>'s exact bf16 split (full_net.cu).
+// CUDA-core control of the float32 tensor-core kernels' exact bf16 split.
 // wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
@@ -108,7 +126,7 @@ final_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
 //   x0 = clip(c0*x - c1*eps);  ddim: x = c2*x + c3*x0
 //                              ddpm: x = c2*x0 + c3*x + c4*noise[s]
 template <typename T>
-__global__ void __launch_bounds__(sizeof(T) == 2 ? kTcThreads : kThreads)
+__global__ void __launch_bounds__(kTcThreads)
 ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embin,
                     const float* __restrict__ trows, const float* __restrict__ coefs,
                     const float* __restrict__ noise, const T* __restrict__ Wf,
@@ -122,8 +140,8 @@ ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embi
   __syncthreads();
 
   for (int s = 0; s < S; ++s) {
-    const float* eps = net_step<T, sizeof(T) == 2>(b, b.XC, 1.0f, trows + (size_t)s * CeE, R, L,
-                                                   E, Ce, G, Wf, net);
+    const float* eps =
+        net_step<T, true>(b, b.XC, 1.0f, trows + (size_t)s * CeE, R, L, E, Ce, G, Wf, net);
     const float* c = coefs + (size_t)s * 8;
     for (int idx = threadIdx.x; idx < R * L; idx += blockDim.x) {
       const float xt = b.XC[idx];
@@ -163,10 +181,9 @@ int launch_ddim(const float* xT, const float* embin, const float* trows, const f
                 const float* noise, const void* w, const long long* net, float* out, int BG,
                 int S, int L, int E, int Ce, int G, int cmax, int clip, float clip_range,
                 cudaStream_t st) {
-  return launch_rows<T, sizeof(T) == 2 ? kTcThreads : kThreads>(
-      ddim_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 1), BG, st, xT,
-                        embin, trows, coefs, noise, (const T*)w, net, out, BG, S, L, E, Ce, G,
-                        cmax, clip, clip_range);
+  return launch_tc_rows<T>(ddim_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 1), L, BG, st,
+                           xT, embin, trows, coefs, noise, (const T*)w, net, out, BG, S, L, E, Ce,
+                           G, cmax, clip, clip_range);
 }
 
 }  // namespace

@@ -12,12 +12,11 @@
 // runs the convs, the projections and the attention's wqkv / wo on the
 // tensor cores (tc_blocks.cuh), from the fragment-ordered weights of the
 // layout's tensor-core table, at 512 threads (kTcThreads):
-// ddim_sampler_kernel<bf16> (net_step<bf16, true>), the float32
-// churn_sampler_kernel and churn_step_kernel (net_step<float, true>) and
-// full_kernel in both dtypes; the float32 instances through the exact bf16
-// split. The bf16 churn kernels run resnet1d_blocks.cuh's CUDA-core body at
-// 512 threads, the float32 DDIM sampler, the DPM++ sampler and the DDIM /
-// DPM++ step kernels at 256.
+// ddim_sampler_kernel and full_kernel in both dtypes, ddim_step_kernel in
+// float32 (kDdimStepTc), the float32 churn_sampler_kernel and
+// churn_step_kernel (kChurnTc); the float32 instances through the exact
+// bf16 split. The bf16 churn kernels run resnet1d_blocks.cuh's CUDA-core
+// body at 512 threads, the DPM++ sampler and step kernels at 256.
 #pragma once
 
 #include "tc_blocks.cuh"
@@ -73,6 +72,13 @@ int tc_rows_per_block(const Plan& p, int L) {
   return R;
 }
 
+// launch_rows_at with tc_rows_per_block's rows: every kernel that runs
+// net_body on the tensor cores in one of its dtypes takes them in both
+template <typename T, int Threads = kTcThreads, typename Kernel, typename... Args>
+int launch_tc_rows(Kernel kernel, const Plan& p, int L, int BG, cudaStream_t st, Args... args) {
+  return launch_rows_at<T, Threads>(kernel, p, tc_rows_per_block<T>(p, L), BG, st, args...);
+}
+
 // The churn kernels (churn_sampler.cu, step_samplers.cu): the network on
 // the tensor cores in float32 (through the exact bf16 split) and on the
 // CUDA cores in bf16 (churn_sampler.cu says why), 512 threads in both
@@ -80,12 +86,13 @@ int tc_rows_per_block(const Plan& p, int L) {
 template <typename T> constexpr bool kChurnTc = sizeof(T) == 4;
 template <typename T> constexpr int kChurnThreads = kTcThreads;
 
-template <typename T, typename Kernel, typename... Args>
-int launch_churn_rows(Kernel kernel, const Plan& p, int L, int BG, cudaStream_t st,
-                      Args... args) {
-  return launch_rows_at<T, kChurnThreads<T>>(kernel, p, tc_rows_per_block<T>(p, L), BG, st,
-                                             args...);
-}
+// ddim_step_kernel (step_samplers.cu): the network on the tensor cores in
+// float32 (through the exact bf16 split), the network of its
+// whole-trajectory twin ddim_sampler_kernel<float>, and on the CUDA cores in
+// bf16 (step_samplers.cu says why), 512 threads in both dtypes,
+// tc_rows_per_block's rows
+template <typename T> constexpr bool kDdimStepTc = sizeof(T) == 4;
+template <typename T> constexpr int kDdimStepThreads = kTcThreads;
 
 // Load the block's rows of x_T into the first carry vector b.XC[0, R*L)
 // and of the conditioning embedding into b.EMBIN; rows past BG read 0.
@@ -106,9 +113,9 @@ __device__ inline void load_sampler_rows(const Bufs<T>& b, const float* __restri
 // the tensor cores (tc_blocks.cuh; float32 T through the exact bf16 split).
 // The one network body of full_kernel and of every sampler kernel's
 // net_step. net_step reads n_st before its barrier and hands it in: read
-// after it, inside net_body, the float32 DDIM sampler took 462.2 ms against
-// 431.1 at fpc BG = 4096 (tools/kernel_variants.py, H100 80GB HBM3, 700.00
-// W).
+// after it, inside net_body, the float32 DDIM sampler (then on the CUDA
+// cores) took 462.2 ms against 431.1 at fpc BG = 4096
+// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W).
 template <typename T, bool TC, typename Store>
 __device__ __forceinline__ void net_body(const Bufs<T>& b, int n_st, int R, int L, int E, int Ce,
                                          int G, const T* __restrict__ Wf,
@@ -144,12 +151,14 @@ __device__ __forceinline__ void net_body(const Bufs<T>& b, int n_st, int R, int 
 // writing it. Returns out = b.SS [R*L], valid when this returns (it ends
 // synchronised) and until the next net_step. TC: the products on the
 // tensor cores (net_body<T, true>; float32 T through the exact bf16 split),
-// for a caller launched with kTcThreads threads: ddim_sampler_kernel<bf16>
-// and the float32 churn kernels. Forced inline: the float32 churn kernels,
-// whose one call site sits in a loop over steps and legs, read 471 ms
-// without it against 351 at fpc BG = 4096 (ppc 1024: 504 against 359;
-// tools/kernel_variants.py, H100 80GB HBM3, 700.00 W); the DDIM sampler
-// reads the same either way.
+// for a caller launched with kTcThreads threads: ddim_sampler_kernel, the
+// float32 ddim_step_kernel and churn kernels. Forced inline: without it
+// the float32 churn kernels, whose one call site sits in a loop over steps
+// and legs, read 471 ms against 351 at fpc BG = 4096 (ppc 1024: 504
+// against 359), and ddim_sampler_kernel<float> 230.0 against 163.3 (ppc:
+// 245.0 against 162.9), though its spill stores fall from 304 bytes to 60
+// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W); the bf16 DDIM
+// sampler reads the same either way.
 template <typename T, bool TC = false>
 __device__ __forceinline__ const float* net_step(const Bufs<T>& b, const float* src, float scale,
                                         const float* __restrict__ trow, int R, int L, int E,

@@ -32,15 +32,38 @@
 // whole-trajectory kernel (sampler_plan with the same carry count, net_step
 // in sampler_body.cuh), so a block holds the same rows and computes the same
 // arithmetic; only the fp32 carry goes through device memory between steps
-// (exactly: it is fp32 on both sides). ddim_step_kernel and
-// dpmpp_step_kernel run the CUDA-core body at 256 threads (16 bf16 / 9 fp32
-// rows at fpc, 4 / 2 at ppc). churn_step_kernel runs churn_sampler_kernel's
-// network, float32 on the tensor cores through the exact bf16 split and bf16
-// on the CUDA cores (kChurnTc), at 512 threads and tc_rows_per_block's rows
-// (16 bf16 / 8 fp32 at fpc, 4 / 2 at ppc): one launch at step 50 of 100
-// takes 3.34 / 3.32 ms in float32 and 4.31 / 4.77 in bf16 at fpc BG = 4096 /
-// ppc BG = 1024 (bf16 at 256 threads: 6.30 / 6.71; tools/kernel_variants.py,
-// H100 80GB HBM3, 700.00 W); churn_sampler.cu gives the decisions.
+// (exactly: it is fp32 on both sides). dpmpp_step_kernel runs the
+// CUDA-core body at 256 threads (16 bf16 / 9 fp32 rows at fpc, 4 / 2 at
+// ppc). ddim_step_kernel and churn_step_kernel run their network on the
+// tensor cores in float32, through the exact bf16 split, and on the CUDA
+// cores in bf16 (kDdimStepTc, kChurnTc in sampler_body.cuh), at 512
+// threads and tc_rows_per_block's rows (16 bf16 / 8 fp32 at fpc, 4 / 2 at
+// ppc). churn_step_kernel: one launch at step 50 of 100 takes 3.34 / 3.32
+// ms in float32 and 4.31 / 4.77 in bf16 at fpc BG = 4096 / ppc BG = 1024
+// (bf16 at 256 threads: 6.30 / 6.71); churn_sampler.cu gives the decisions.
+// ddim_step_kernel, against the sources with each decision undone
+// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W; step 50 of 100, the
+// operands of chip_smoke.py's step-kernel phase):
+//   * float32: ddim_sampler_kernel<float>'s body and rows (kernels.cu), so
+//     its launches are bitwise that kernel's steps: 1.523 / 1.555 ms (on
+//     the CUDA cores at 256 threads: 4.044 / 3.088, chip_smoke.py); 9 rows
+//     at fpc 1.956, the tensor-core body at 256 threads 1.711 / 1.679,
+//     net_step not inlined 1.747 / 1.795. 128 registers, 60 bytes of spill
+//     stores. The mean error of its first 3 steps reads 8.3e-9 of
+//     max(1, max|x|).
+//   * bf16: the CUDA-core body, its arithmetic unchanged, 2.092 / 2.305 ms
+//     against 3.075 / 3.240 at 256 threads (113 registers and no spill,
+//     where 256 threads held it to 80 and spilled 64 bytes). On the tensor
+//     cores (ddim_sampler_kernel<bf16>'s body, whose launches it would
+//     match bitwise) it reads 0.798 / 0.794 ms but fails chip_smoke.py's
+//     TOL_BF16_STEP_MEAN["ddim"] (2^-19 = 1.9e-6 of max(1, max|x|), the
+//     mean over the first 3 chained steps) at ppc: 3.68e-6 at BG = 1024
+//     and 3.69e-6 at 1021, where the CUDA-core kernel reads 4.2e-7 and
+//     4.6e-7 (fpc: 1.26e-6 and 1.45e-6, under it; the CUDA-core kernel
+//     7.8e-8 and 1.1e-7). The same summation order as churn's
+//     (churn_sampler.cu): the limit sits a few times above a kernel whose
+//     float32 sums run in the plain version's order. So bf16 stays on the
+//     CUDA cores until a check holds the tensor cores' order (ROADMAP.md).
 //
 // Each update is a copy of the one in its whole-trajectory twin, named at the
 // update; the twins are left as they are, because their times moved by whole
@@ -59,7 +82,7 @@ namespace {
 //   eps = net(x);  x0 = clip(c0*x - c1*eps)
 //   ddim: out = c2*x + c3*x0;   ddpm: out = c2*x0 + c3*x + c4*noise
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDdimStepThreads<T>)
 ddim_step_kernel(const float* __restrict__ x, const float* __restrict__ embin,
                  const float* __restrict__ trow, const float* __restrict__ c,
                  const float* __restrict__ noise, const T* __restrict__ Wf,
@@ -70,7 +93,7 @@ ddim_step_kernel(const float* __restrict__ x, const float* __restrict__ embin,
   const int row0 = blockIdx.x * R;
   load_sampler_rows(b, x, embin, row0, R, BG, L, Ce * E);
   __syncthreads();
-  const float* eps = net_step(b, b.XC, 1.0f, trow, R, L, E, Ce, G, Wf, net);
+  const float* eps = net_step<T, kDdimStepTc<T>>(b, b.XC, 1.0f, trow, R, L, E, Ce, G, Wf, net);
   // the update of ddim_sampler_kernel (kernels.cu), its twin
   for (int idx = threadIdx.x; idx < R * L; idx += blockDim.x) {
     if (row0 + idx / L >= BG) continue;
@@ -190,14 +213,14 @@ int gl_ddim_step(int dtype, const float* x, const float* embin, const float* tro
                  float* out, int BG, int L, int E, int Ce, int G, int cmax, int clip,
                  float clip_range, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const Plan p = sampler_plan(L, cmax, E, Ce, G, 1);
   if (dtype == 0)
-    return launch_rows<float>(ddim_step_kernel<float>, sampler_plan(L, cmax, E, Ce, G, 1), BG,
-                              st, x, embin, trow, coef, noise, (const float*)w, net, out, BG,
-                              L, E, Ce, G, cmax, clip, clip_range);
-  return launch_rows<__nv_bfloat16>(ddim_step_kernel<__nv_bfloat16>,
-                                    sampler_plan(L, cmax, E, Ce, G, 1), BG, st, x, embin, trow,
-                                    coef, noise, (const __nv_bfloat16*)w, net, out, BG, L, E,
-                                    Ce, G, cmax, clip, clip_range);
+    return launch_tc_rows<float, kDdimStepThreads<float>>(
+        ddim_step_kernel<float>, p, L, BG, st, x, embin, trow, coef, noise, (const float*)w, net,
+        out, BG, L, E, Ce, G, cmax, clip, clip_range);
+  return launch_tc_rows<__nv_bfloat16, kDdimStepThreads<__nv_bfloat16>>(
+      ddim_step_kernel<__nv_bfloat16>, p, L, BG, st, x, embin, trow, coef, noise,
+      (const __nv_bfloat16*)w, net, out, BG, L, E, Ce, G, cmax, clip, clip_range);
 }
 
 int gl_dpmpp_step(int dtype, const float* x, const float* old, const float* embin,
@@ -222,13 +245,12 @@ int gl_churn_step(int dtype, const float* x, const float* noise, const float* em
   cudaStream_t st = (cudaStream_t)stream;
   const Plan p = sampler_plan(L, cmax, E, Ce, G, 4);
   if (dtype == 0)
-    return launch_churn_rows<float>(churn_step_kernel<float>, p, L, BG, st, x, noise, embin,
-                                    trowA, trowB, coefA, coefB, (const float*)w, net, out, BG, L,
-                                    E, Ce, G, cmax, clamp);
-  return launch_churn_rows<__nv_bfloat16>(churn_step_kernel<__nv_bfloat16>, p, L, BG, st, x,
-                                          noise, embin, trowA, trowB, coefA, coefB,
-                                          (const __nv_bfloat16*)w, net, out, BG, L, E, Ce, G,
-                                          cmax, clamp);
+    return launch_tc_rows<float, kChurnThreads<float>>(
+        churn_step_kernel<float>, p, L, BG, st, x, noise, embin, trowA, trowB, coefA, coefB,
+        (const float*)w, net, out, BG, L, E, Ce, G, cmax, clamp);
+  return launch_tc_rows<__nv_bfloat16, kChurnThreads<__nv_bfloat16>>(
+      churn_step_kernel<__nv_bfloat16>, p, L, BG, st, x, noise, embin, trowA, trowB, coefA, coefB,
+      (const __nv_bfloat16*)w, net, out, BG, L, E, Ce, G, cmax, clamp);
 }
 
 }  // extern "C"

@@ -11,19 +11,29 @@ the VAE decoder), and the line prints each variant's lesser ms of its two
 turns and, for ``full_kernel``, its error against ``full_plain`` relative
 to max(1, max|ref|), beside the float32 stage chain's (the CUDA cores).
 ``--kernels`` limits the timed calls (and the sources built) to some of
-``full``, ``ddim``, ``stage`` and ``churn``.
+``full``, ``ddim``, ``stage`` and ``churn``. Each nvcc's ``-Xptxas -v``
+report gives every built kernel's registers and spills, a line each.
 
 The churn lines give, beside each variant's time, a mean error relative to
 max(1, max|ref|) that ``chip_smoke.py`` holds in bf16: of a 2-step
 trajectory against ``churn_sampler_plain`` (``TOL_BF16_EDM_STEP_MEAN``),
 and of the first 3 churn steps against ``churn_step_plain``
-(``TOL_BF16_STEP_MEAN["churn"]``).
+(``TOL_BF16_STEP_MEAN["churn"]``). The DDIM lines time
+``ddim_sampler_kernel`` (100 steps) and one ``ddim_step_kernel`` launch
+(step 50 of 100) in both dtypes at the fpc and ppc denoisers, on the
+operands of ``chip_smoke.py``'s step-kernel phase (its seed, rows and
+schedule), and give each variant's largest error of the float32 sampler
+against ``sampler_plain`` and its mean error over the first 3 chained
+DDIM steps against ``ddim_step_plain`` (the largest over the 3 states, at
+the full BG and at the ragged 1021), which chip_smoke.py holds in bf16
+(``TOL_BF16_STEP_MEAN["ddim"]``).
 
-``--staging`` builds the churn kernels' sources once more with a counter of
-the path each tensor-core product of block 0 takes (its A staged in the dead
-buffers; read value by value for a width off the 16-wide k-step; or value
-by value for want of room, which must read 0) and prints the counts of one
-launch of each float32 churn kernel at the fpc and ppc denoisers.
+``--staging`` builds the sources of the float32 tensor-core sampler kernels
+(the churn pair, the DDIM pair) once more with a counter of the path each
+tensor-core product of block 0 takes (its A staged in the dead buffers;
+read value by value for a width off the 16-wide k-step; or value by value
+for want of room, which must read 0) and prints the counts of one launch of
+each at the fpc and ppc denoisers.
 
     python -m graspldm_tpu_torch.tools.kernel_variants [--kernels K ...] [--staging] [VARIANT ...]
 
@@ -120,11 +130,24 @@ VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
          ": kThreads;")],
     "bf16 churn on the tensor cores": [_BF16_CHURN_TC],
     "bf16 churn on the tensor cores, a fresh accumulator a k-step": [_BF16_CHURN_TC, _FRESH],
+    "tensor-core body at 256 threads": [
+        (_TC, "constexpr int kTcThreads = 512;", "constexpr int kTcThreads = 256;")],
+    "bf16 DDIM step on the tensor cores": [
+        (_SB, "template <typename T> constexpr bool kDdimStepTc = sizeof(T) == 4;",
+         "template <typename T> constexpr bool kDdimStepTc = true;")],
+    "bf16 DDIM step at 256 threads": [
+        (_SB, "template <typename T> constexpr int kDdimStepThreads = kTcThreads;",
+         "template <typename T> constexpr int kDdimStepThreads = sizeof(T) == 4 ? kTcThreads "
+         ": kThreads;")],
 }
 # the timed calls' sources
-_BUILT = {"full": ("full_net.cu",), "ddim": ("kernels.cu",), "stage": ("kernels.cu",),
-          "churn": ("churn_sampler.cu", "step_samplers.cu")}
-_CHURN = _BUILT["churn"]
+_BUILT = {"full": ("full_net.cu",), "ddim": ("kernels.cu", "step_samplers.cu"),
+          "stage": ("kernels.cu",), "churn": ("churn_sampler.cu", "step_samplers.cu")}
+# the float32 tensor-core sampler kernels --staging counts: source, C entry
+_STAGED = {"churn_sampler_kernel": ("churn_sampler.cu", "gl_churn_sample"),
+           "churn_step_kernel": ("step_samplers.cu", "gl_churn_step"),
+           "ddim_sampler_kernel": ("kernels.cu", "gl_ddim_sample"),
+           "ddim_step_kernel": ("step_samplers.cu", "gl_ddim_step")}
 # block 0's tensor-core products by path: staged, off the k-step, no room
 _STAGING = [
     (_TC, "namespace gl {\n", "namespace gl {\n__device__ unsigned long long gl_staged[3];\n"),
@@ -273,28 +296,42 @@ def _churn_steps(w, x_T, tables, noise, n: int, step=cs.churn_step_apply):
     return x
 
 
-def staging(dev, gen) -> None:
+def _ddim_tables(w, sched, input_emb, n: int = 100):
+    return cs.sampler_tables(w, sched, input_emb, n, "ddim", "fixed_large")
+
+
+def staging(dev, gen, sched) -> None:
     """Print block 0's tensor-core products by path for one launch of each
-    float32 churn kernel (2-step tables: 4 network evaluations a sampler
-    launch, 2 a step launch) at the fpc and ppc EDM denoisers."""
+    float32 tensor-core sampler kernel (2-step tables: 4 network evaluations
+    a churn sampler launch, 2 a churn step or DDIM sampler launch, 1 a DDIM
+    step) at the fpc and ppc EDM denoisers."""
     root = BUILD_DIR / "staging"
-    libs = _build({"staging": _STAGING}, _CHURN, root=root.name)["staging"]
-    reads = [ctypes.CDLL(str(root / "0" / f"{src}.so")).gl_staging_counts for src in _CHURN]
+    sources = sorted({src for src, _ in _STAGED.values()})
+    libs = _build({"staging": _STAGING}, sources, root=root.name)["staging"]
+    reads = {src: ctypes.CDLL(str(root / "0" / f"{src}.so")).gl_staging_counts
+             for src in sources}
     ns = load_library()
-    own = ns.gl_churn_sample, ns.gl_churn_step
+    own = {entry: getattr(ns, entry) for _, entry in _STAGED.values()}
     try:
-        ns.gl_churn_sample, ns.gl_churn_step = libs.gl_churn_sample, libs.gl_churn_step
+        for entry in own:
+            setattr(ns, entry, getattr(libs, entry))
         for label, cfg, bg in (("fpc", {}, 4096), ("ppc", _PPC, 1024)):
             _, ddm, ed = build_flagship(FlagshipConfig(elucidated=True, **cfg),
                                         generator=torch.Generator().manual_seed(0), device=dev)
             dims = _denoiser_dims(ddm)
             w = sc.PackedNet(pack_math_weights(ddm, dims), dims, torch.float32, dev)
             x_T, tables, noise = _churn_operands(w, ed, bg, gen, dev, 2)
-            for name, read, call in (
-                    ("churn_sampler_kernel", reads[0],
-                     lambda: cs.churn_sampler_apply(w, x_T, *tables, noise)),
-                    ("churn_step_kernel", reads[1],
-                     lambda: _churn_step(w, x_T, tables, noise, 0))):
+            input_emb = tables[0].reshape(bg, dims.cond_channels, -1)
+            embin, trows, coefs = _ddim_tables(w, sched, input_emb, 2)
+            calls = {
+                "churn_sampler_kernel": (4, lambda: cs.churn_sampler_apply(w, x_T, *tables, noise)),
+                "churn_step_kernel": (2, lambda: _churn_step(w, x_T, tables, noise, 0)),
+                "ddim_sampler_kernel": (2, lambda: cs.sampler_apply(w, x_T, embin, trows, coefs)),
+                "ddim_step_kernel": (1, lambda: cs.ddim_step_apply(w, x_T, embin, trows[0],
+                                                                   coefs[0])),
+            }
+            for name, (evals, call) in calls.items():
+                read = reads[_STAGED[name][0]]
                 got = (ctypes.c_ulonglong * 3)()
                 for run in (False, True):  # the first read clears what came before
                     if run:
@@ -302,13 +339,41 @@ def staging(dev, gen) -> None:
                     torch.cuda.synchronize()
                     if read(got) != 0:
                         raise RuntimeError("gl_staging_counts failed")
-                print(f"staging {name} fp32 {label} L={dims.seq_len} BG={bg}, block 0: "
-                      f"{got[0]} staged, {got[1]} value by value (width off the k-step), "
-                      f"{got[2]} value by value (no room)", flush=True)
+                print(f"staging {name} fp32 {label} L={dims.seq_len} BG={bg}, block 0 over "
+                      f"{evals} evaluation(s): {got[0]} staged, {got[1]} value by value (width off "
+                      f"the k-step), {got[2]} value by value (no room)", flush=True)
                 if got[2]:
                     raise AssertionError(f"{name}: {got[2]} products found no room")
     finally:
-        ns.gl_churn_sample, ns.gl_churn_step = own
+        for entry, fn in own.items():
+            setattr(ns, entry, fn)
+
+
+def _ddim_step_errors(libs, w, sched, input_emb, x_T, n: int = 3) -> Dict[str, float]:
+    """Each variant's mean error over the first ``n`` chained DDIM steps of
+    its ``ddim_step_kernel`` against ``ddim_step_plain``, relative to
+    max(1, max|state|): the largest over the ``n`` states, as
+    chip_smoke.py holds them (``step_kernel_phase``)."""
+    embin, trows, coefs = _ddim_tables(w, sched, input_emb)
+    refs, x = [], x_T
+    for s in range(n):
+        x = cs.ddim_step_plain(w, x, embin, trows[s], coefs[s], None, True, 1.0)
+        refs.append(x)
+    ns = load_library()
+    own = ns.gl_ddim_step
+    out = {}
+    try:
+        for name, lib in libs.items():
+            ns.gl_ddim_step = lib.gl_ddim_step
+            x, worst = x_T, 0.0
+            for s, ref in enumerate(refs):
+                x = cs.ddim_step_apply(w, x, embin, trows[s], coefs[s])
+                top = max(1.0, ref.abs().max().item())
+                worst = max(worst, (x - ref).abs().mean().item() / top)
+            out[name] = worst
+    finally:
+        ns.gl_ddim_step = own
+    return out
 
 
 def main(argv=None) -> None:
@@ -330,8 +395,9 @@ def main(argv=None) -> None:
     print(device_line(dev), flush=True)
     load_library()
     gen = torch.Generator(device=dev).manual_seed(0)
+    sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
     if args.staging:
-        staging(dev, gen)
+        staging(dev, gen, sched)
     sources = sorted({f for k in kernels for f in _BUILT[k]})
     libs = _build({n: VARIANTS[n] for n in names}, sources)
 
@@ -344,8 +410,8 @@ def main(argv=None) -> None:
     for cfg, shapes, churn in (({}, ((torch.float32, 8192), (torch.float32, 4096),
                                      (torch.bfloat16, 4096)), 4096),
                                (_PPC, ((torch.float32, 2048),), 1024)):
-        vae, ddm, ed = build_flagship(FlagshipConfig(elucidated=True, **cfg),
-                                      generator=torch.Generator().manual_seed(0), device=dev)
+        _, ddm, ed = build_flagship(FlagshipConfig(elucidated=True, **cfg),
+                                    generator=torch.Generator().manual_seed(0), device=dev)
         dims = _denoiser_dims(ddm)
         math_w = pack_math_weights(ddm, dims)
         for dt, bg in shapes if "full" in kernels else ():
@@ -381,21 +447,34 @@ def main(argv=None) -> None:
                    _errors(libs, "gl_churn_step",
                            lambda: _churn_steps(w, x_T, tables, noise, 3), ref.float(), True),
                    what="3-step mean err")
-    vae, ddm, diff = build_flagship(FlagshipConfig(), generator=torch.Generator().manual_seed(0),
-                                    device=dev)
-    dims = _denoiser_dims(ddm)
-    sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
-    z = torch.randn((4096, 3, dims.cond_dim), generator=gen, device=dev)
-    x_T = torch.randn((4096, dims.seq_len), generator=gen, device=dev)
-    for dt in (torch.bfloat16, torch.float32) if "ddim" in kernels else ():
-        w = sc.PackedNet(pack_math_weights(ddm, dims), dims, dt, dev)
-        tables = cs.sampler_tables(w, sched, compute_input_emb(w.aux, z), 100, "ddim",
-                                   "fixed_large")
-        report(f"ddim_sampler_kernel {'fp32' if dt == torch.float32 else 'bf16'} L=4 BG=4096 "
-               f"x 100 steps", _turns(libs, "gl_ddim_sample",
-                                      lambda: cs.sampler_apply(w, x_T, *tables), 2))
+        if "ddim" in kernels:
+            # chip_smoke.py's step-kernel operands: its seed (SEED + 8), its draws
+            g8 = torch.Generator(device=dev).manual_seed(8)
+            z = torch.randn((churn, 3, dims.cond_dim), generator=g8, device=dev)
+            x_unit = torch.randn((churn, dims.seq_len), generator=g8, device=dev)
+            for dt in (torch.bfloat16, torch.float32):
+                w = sc.PackedNet(math_w, dims, dt, dev)
+                tag = f"{'fp32' if dt == torch.float32 else 'bf16'} L={dims.seq_len}"
+                emb = compute_input_emb(w.aux, z)
+                tables = _ddim_tables(w, sched, emb)
+                call = lambda: cs.sampler_apply(w, x_unit, *tables)  # noqa: E731
+                err = None
+                if dt == torch.float32:  # chip_smoke.py holds it at TOL_FP32 (1e-4)
+                    ref = cs.sampler_plain(w, x_unit, *tables, None, True, 1.0)
+                    err = _errors(libs, "gl_ddim_sample", call, ref)
+                report(f"ddim_sampler_kernel {tag} BG={churn} x 100 steps",
+                       _turns(libs, "gl_ddim_sample", call, 2), err, what="max err")
+                embin, trows, coefs = tables
+                ms = _turns(libs, "gl_ddim_step",
+                            lambda: cs.ddim_step_apply(w, x_unit, embin, trows[50], coefs[50]), 10)
+                for bg in (churn, 1021):
+                    err = _ddim_step_errors(libs, w, sched, emb[:bg], x_unit[:bg].contiguous())
+                    report(f"ddim_step_kernel {tag} BG={churn}, one launch (step 50); "
+                           f"3-step mean err at BG={bg}", ms, err, what="3-step mean err")
     if "stage" not in kernels:
         return
+    vae = build_flagship(FlagshipConfig(), generator=torch.Generator().manual_seed(0),
+                         device=dev)[0]
     dd = decoder_dims_for(vae)
     wd = sc.PackedNet(pack_math_weights(vae.decoder.net, dd), dd, torch.bfloat16, dev)
     embd = torch.randn((4096, dd.cond_channels * dd.emb_dim), generator=gen,

@@ -7,9 +7,10 @@ The cases: class CFG (DDIM), region CFG (DPM++), success guidance on the
 unconditioned flagship (DDPM), CFG and success guidance composed (class,
 churn), conditioned without guidance (class DDIM and region DPM++, which
 the port runs through its whole-trajectory samplers with the extra
-embedding folded in), and one guided trajectory (class CFG DDIM,
-``return_trajectory``). The JAX package runs its Python-loop samplers over
-its stacked XLA denoiser in every case; the port runs its guided loops over
+embedding folded in), and two trajectories (class DDIM with CFG, and
+unguided: ``return_trajectory``, the unguided one through the port's
+per-step sampler wrapper). The JAX package runs its Python-loop samplers
+over its stacked XLA denoiser in every case; the port runs its guided loops over
 ``stacked_denoiser_apply(..., fuse_stages=True)``, i.e. ``full_plain`` on
 CPU tensors, and its gradient through its plain decoder.
 
@@ -129,6 +130,7 @@ CASES = {
     "class-unguided-ddim": ("class", "ddim", {}, False),
     "region-unguided-dpmpp": ("region", "dpmpp", {}, False),
     "class-cfg-ddim-trajectory": ("class", "ddim", dict(cfg_scale=2.0), True),
+    "class-unguided-ddim-trajectory": ("class", "ddim", {}, True),
 }
 
 

@@ -534,17 +534,22 @@ def test_sampler_kernel_matches_plain_on_card(cuda, nets, sampler, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sampler", ["ddim", "ddpm"])
 @pytest.mark.parametrize("channels", [(8, 16), (16, 32)])
-def test_bf16_ddim_sampler_kernel_takes_narrow_models_on_card(cuda, channels, sampler):
-    """The tensor-core body of ddim_sampler_kernel<bf16> at widths off its
-    16-wide tiles (the init conv's 4 channels, 8-wide stages: zero-padded
-    K and N in the fragments, A read value by value) over a ragged BG,
-    against its plain version within chip_smoke.TOL_BF16_SAMPLER."""
+def test_bf16_ddim_sampler_kernel_takes_narrow_models_on_card(cuda, channels, sampler, dtype):
+    """The tensor-core body of ddim_sampler_kernel (bf16; float32 through
+    the exact bf16 split) at widths off its 16-wide tiles (the init conv's 4
+    channels, 8-wide stages: zero-padded K and N in the fragments, A read
+    value by value, for float32 split in registers) over a ragged BG,
+    against its plain version within chip_smoke.TOL_BF16_SAMPLER (bf16) or
+    1e-4 (float32); then 2 chained ddim_step_kernel launches (float32 the
+    same body, bf16 the CUDA-core body) against their plain steps within
+    the limits of test_step_kernels_match_plain_steps_on_card."""
     torch.manual_seed(1)
     ddm = GraspLatentDDM(block_channels=channels, dropout=None).eval()
     dims = _denoiser_dims(ddm)
-    w = sc.PackedNet(pack_math_weights(ddm, dims), dims, torch.bfloat16, cuda)
+    w = sc.PackedNet(pack_math_weights(ddm, dims), dims, dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(7)
     BG, S = 37, 10
     schedule = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
@@ -556,7 +561,20 @@ def test_bf16_ddim_sampler_kernel_takes_narrow_models_on_card(cuda, channels, sa
     got = cs.sampler_apply(w, x_T, *tables, noise)
     torch.cuda.synchronize()
     ref = cs.sampler_plain(w, x_T, *tables, noise, True, 1.0)
-    torch.testing.assert_close(got, ref, rtol=0, atol=2.0 ** -4)
+    tol = dict(rtol=1e-4, atol=1e-4) if dtype == torch.float32 else dict(rtol=0, atol=2.0 ** -4)
+    torch.testing.assert_close(got, ref, **tol)
+    embin, trows, coefs = tables
+    xk = xp = x_T
+    for s in range(2):
+        nz = None if noise is None else noise[s]
+        before = cs.DDIM_STEP_KERNEL.launches
+        xk = cs.ddim_step_apply(w, xk, embin, trows[s], coefs[s], nz)
+        assert cs.DDIM_STEP_KERNEL.launches == before + 1
+        torch.cuda.synchronize()
+        xp = cs.ddim_step_plain(w, xp, embin, trows[s], coefs[s], nz, True, 1.0)
+        scale = max(1.0, xp.abs().max().item())
+        atol = 1e-4 * scale if dtype == torch.float32 else 2.0 ** -4
+        torch.testing.assert_close(xk, xp, rtol=0, atol=atol, msg=f"step {s}")
 
 
 # EDM has no clip, so the limits are relative to the output's largest
@@ -672,8 +690,10 @@ def test_step_kernels_match_plain_steps_on_card(cuda, nets, dtype, L):
 def test_step_launches_match_whole_trajectory_kernel_on_card(cuda, nets, sampler):
     """S step-kernel launches end where the whole-trajectory kernel does:
     float32, 5 steps, to 1e-4 of max(1, max|x_0|) (the same step body and
-    block plan: for churn both on the tensor cores in 8-row blocks;
-    chip_smoke.py reports whether they are bitwise equal)."""
+    block plan: for DDIM / DDPM and churn both on the tensor cores through
+    the exact bf16 split in 8-row blocks, for DPM++ both on the CUDA cores
+    in 9-row blocks; chip_smoke.py reports whether they are bitwise
+    equal)."""
     math, dims = nets["den"][4]
     w = sc.PackedNet(math, dims, torch.float32, cuda)
     run = _trajectory_run(w, sampler, 37, 5, torch.Generator(device=cuda).manual_seed(10))
@@ -727,29 +747,48 @@ def test_churn_kernels_take_narrow_models_on_card(cuda, channels, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ddim", "churn"])
 @pytest.mark.parametrize("L", [4, 16])
-def test_float32_churn_step_kernel_within_the_cuda_core_control_on_card(cuda, nets, L):
-    """chip_smoke.py's CUDA-core control of the float32 churn_step_kernel
-    (the exact bf16 split on the tensor cores) at a small BG: on step 3 of
-    6, from the state its own launches reached, its error against
-    churn_step_plain within SPLIT_VS_CUDA_CORES of the error of the same
-    plain step whose two network evaluations run the float32 stage chain
-    (stage_kernel x 4 + final_kernel, the CUDA cores; the init conv and
-    the FiLM input as the plain step computes them)."""
+def test_float32_churn_step_kernel_within_the_cuda_core_control_on_card(cuda, nets, L, kind):
+    """chip_smoke.py's CUDA-core control of the float32 step kernels on the
+    split (ddim_step_kernel, churn_step_kernel: the exact bf16 split on the
+    tensor cores) at a small BG: on step 3 of 6 (DDIM: 5 of 10), from the
+    state its own launches reached, its error against its plain step within
+    SPLIT_VS_CUDA_CORES of the error of the same plain step whose network
+    evaluations run the float32 stage chain (stage_kernel x 4 +
+    final_kernel, the CUDA cores; the init conv and the FiLM input as the
+    plain step computes them)."""
     from unittest import mock
 
     math, dims = nets["den"][L]
     w = sc.PackedNet(math, dims, torch.float32, cuda)
     g = torch.Generator(device=cuda).manual_seed(14)
-    BG, N, s, ed = 257, 6, 3, ElucidatedDiffusion(n_dims=L)
+    BG, ed = 257, ElucidatedDiffusion(n_dims=L)
     z_pc = torch.randn(BG, 3, dims.cond_dim, generator=g, device=cuda)
     input_emb = compute_input_emb(w.aux, z_pc)
-    x_T = 80.0 * torch.randn(BG, L, generator=g, device=cuda)
-    noise = torch.randn(N, BG, L, generator=g, device=cuda)
-    x = cs.fused_sample_churn(w, ed, input_emb, x_T, N, noise=noise,
-                              return_trajectory=True)[1][s, :, 0].contiguous()
-    embin, tA, tB, cA, cB = cs.churn_tables(w, ed, input_emb, N)
-    ops = (embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+    x_unit = torch.randn(BG, L, generator=g, device=cuda)
+    if kind == "ddim":
+        N, s = 10, 5
+        sched = DiffusionSchedule.create(**SCHEDULE)
+        x = cs.fused_sample(w, sched, input_emb, x_unit, N,
+                            return_trajectory=True)[1][s, :, 0].contiguous()
+        embin, trows, coefs = cs.sampler_tables(w, sched, input_emb, N, "ddim", "fixed_large")
+        ops = (embin, trows[s], coefs[s])
+        kernel = cs.ddim_step_apply
+
+        def plain(wn, x_in, *a):
+            return cs.ddim_step_plain(wn, x_in, *a, None, True, 1.0)
+    else:
+        N, s = 6, 3
+        noise = torch.randn(N, BG, L, generator=g, device=cuda)
+        x = cs.fused_sample_churn(w, ed, input_emb, 80.0 * x_unit, N, noise=noise,
+                                  return_trajectory=True)[1][s, :, 0].contiguous()
+        embin, tA, tB, cA, cB = cs.churn_tables(w, ed, input_emb, N)
+        ops = (embin, tA[s], tB[s], cA[s], cB[s], noise[s])
+        kernel = cs.churn_step_apply
+
+        def plain(wn, x_in, *a):
+            return cs.churn_step_plain(wn, x_in, *a, False)
 
     def chain_net(wn, x_in, embin_, trow):
         emb = torch.nn.functional.silu(embin_ + trow).to(wn.dtype)
@@ -758,10 +797,10 @@ def test_float32_churn_step_kernel_within_the_cuda_core_control_on_card(cuda, ne
             h = sc.stage_apply(wn, i, h, emb)
         return sc.final_apply(wn, h, emb).float()
 
-    got = cs.churn_step_apply(w, x, *ops)
-    ref = cs.churn_step_plain(w, x, *ops, False)
+    got = kernel(w, x, *ops)
+    ref = plain(w, x, *ops)
     with mock.patch.object(cs, "_net_plain", chain_net):
-        chain = cs.churn_step_plain(w, x, *ops, False)
+        chain = plain(w, x, *ops)
     torch.cuda.synchronize()
     err, chain_err = ((t - ref).abs().max().item() for t in (got, chain))
     assert err <= SPLIT_VS_CUDA_CORES * chain_err, (err, chain_err)
