@@ -13,32 +13,39 @@ any phase fails (every phase runs; the failures are listed at the end):
    process per source, in parallel);
 3. hold each kernel against its plain PyTorch version on the card, in
    float32 (TF32 off) and bfloat16, and time both with CUDA events: the
-   stage/final/DDIM kernels at the fpc flagship's shapes (BG = 4096 rows),
+   stage/final/DDIM kernels at the fpc flagship's shapes (BG = 4096 rows;
+   ``final_kernel`` also at a ragged BG = 1021; the decode's core is also
+   timed as one ``full_kernel`` launch beside its route, the chain of 5),
    ``dpmpp_sampler_kernel`` (32 steps) and ``churn_sampler_kernel`` (100
    steps) at fpc, and all three sampler kernels at the ppc denoiser's
    L = 16 (checked at BG = 1021 over 8 steps, then checked and timed at
    BG = 1024 with their full step counts; the float32 DDIM kernel also as
    DDPM, checked only); the EDM kernels' bf16 rounding
-   points are also held over 2 steps at both, against bf16's own spread.
-   Then the control: ``ddim_sampler_kernel``'s bf16 ms a step (its
-   products on the tensor cores) beside ``dpmpp_sampler_kernel``'s (the
-   same network on the CUDA cores), at fpc and ppc.
+   points are also held over 2 steps at both, against bf16's own spread;
+   the float32 ``dpmpp_sampler_kernel`` (the exact bf16 split on the
+   tensor cores) is held to the split controls over its whole 32-step
+   trajectories (see below). Then the control: ``ddim_sampler_kernel``'s
+   bf16 ms a step beside ``dpmpp_sampler_kernel``'s (the same network; the
+   body each runs is named), at fpc and ppc.
    The per-step kernels of the trajectory path (``ddim_step_kernel``,
    ``dpmpp_step_kernel``, ``churn_step_kernel``) are held the same way:
    over their first few chained steps against their plain steps at fpc
    (BG = 4096) and ppc (BG = 1024), both also at a ragged BG = 1021, timed
    per launch at BG = 4096 / 1024, and their whole chains (one launch per
    step) against the whole-trajectory kernels at the main paths' shapes.
-   The float32 DDIM and churn kernels run their products on the tensor
-   cores through the exact bf16 split (the bf16 ``ddim_step_kernel`` and
-   churn kernels on the CUDA cores); the float32 ``ddim_step_kernel`` (also
-   held as DDPM) and ``churn_step_kernel`` are held against two controls on
+   The float32 DDIM, DPM++ and churn kernels (but ``dpmpp_step_kernel``)
+   run their products on the tensor cores through the exact bf16 split (the
+   bf16 ``ddim_step_kernel``, DPM++ and churn kernels, and
+   ``dpmpp_step_kernel``, on the CUDA cores); the float32
+   ``ddim_step_kernel`` (also held as DDPM) and ``churn_step_kernel`` are
+   held against two controls on
    one mid-trajectory step at fpc and ppc: their error within
    ``SPLIT_VS_CUDA_CORES`` times that of the same step through the float32
    stage chain (the CUDA cores), and a bf16 network's error above
    ``TOL_FP32`` (logged only for DDIM, whose one step scales the network's
-   error down below it; the float32 DDIM kernels are held to both controls
-   over the whole trajectory instead); the float32 pack (which builds the
+   error down below it; the float32 DDIM kernels and the float32
+   ``dpmpp_sampler_kernel`` are held to both controls over the whole
+   trajectory instead); the float32 pack (which builds the
    split's copies) is timed beside the float32 churn calls;
 4. the DDIM main path: the full-width fpc flagship (random weights from a
    seeded ``torch.Generator``), ``ldm_generate`` for 4 clouds x 1024
@@ -69,7 +76,8 @@ any phase fails (every phase runs; the failures are listed at the end):
    success guidance (DPM++ 32); the region-conditioned EDM ppc flagship
    (128 region points) with ``cfg_scale=2`` (DPM++ 32, one cloud x 1024
    grasps) and unguided with churn 100 (one float32
-   ``churn_sampler_kernel`` launch); each call twice, its wall time split
+   ``churn_sampler_kernel`` launch) and DPM++ 32 (one float32
+   ``dpmpp_sampler_kernel`` launch); each call twice, its wall time split
    into denoiser launches, guidance VJPs and the rest; and 3 requests with a ``cls`` field to a
    class-conditioned ``GraspServer``; the success-guided calls take the
    decoder's VJP in bf16, as the JAX package does. Before the main paths,
@@ -126,8 +134,9 @@ any phase fails (every phase runs; the failures are listed at the end):
    built library is read for tensor-core (HMMA) instructions: the three
    forms of ``mm_chain_kernel``, ``bcast_chain_kernel`` matmul, both
    ``ddim_sampler_kernel`` and ``full_kernel`` instances, the bf16
-   ``stage_kernel`` and the float32 ``ddim_step_kernel``,
-   ``churn_sampler_kernel`` and ``churn_step_kernel`` issue them, every
+   ``stage_kernel`` and ``final_kernel`` and the float32
+   ``ddim_step_kernel``, ``dpmpp_sampler_kernel``, ``churn_sampler_kernel``
+   and ``churn_step_kernel`` issue them (``TENSOR_CORE_KERNELS``), every
    other kernel none, and no
    kernel a TF32 one (the bound of every SiLU form is printed beside its
    time; the library call, ``F.silu``, computes the ``f32`` form only);
@@ -639,17 +648,26 @@ def kernel_phase(run: Run, vae, ddm, diffusion, dev) -> None:
         log(f"  stage_kernel, 4 launches of one decode: kernel {k_ms:.3f} ms, "
             f"plain {p_ms:.3f} ms")
 
+        # final_kernel (bf16: its two convs on the tensor cores) at the decode's
+        # rows and at a ragged BG
+        checked = []
+        for bg in (BG, RAGGED_BG):
+            xb, eb = x[:bg].contiguous(), emb[:bg].contiguous()
+            got = final_apply(w, xb, eb)
+            torch.cuda.synchronize()
+            checked.append(dict(BG=bg, max_abs_err=run.compare(
+                f"final_kernel L=16 256->1 BG={bg}", got, final_plain(w, xb, eb),
+                TOL_FP32 if tag == "fp32" else TOL_BF16)))
         ref = final_plain(w, x, emb)
-        got = final_apply(w, x, emb)
-        torch.cuda.synchronize()
-        err = run.compare("final_kernel L=16 256->1", got, ref,
-                          TOL_FP32 if tag == "fp32" else TOL_BF16)
         k_ms = cuda_ms(lambda: final_apply(w, x, emb), 10)
         p_ms = cuda_ms(lambda: final_plain(w, x, emb), 3)
         moved = nbytes(x, emb, ref, *(t for k, t in w.w.items() if k.startswith("final")))
-        run.record("final_kernel", "fpc", 16, BG, None, tag, what="decoder", err=err, ms=k_ms,
+        run.record("final_kernel", "fpc", 16, BG, None, tag, what="decoder",
+                   err=checked[0]["max_abs_err"], err_checked_at=checked, ms=k_ms,
                    plain_ms=p_ms, **bound(2.0 * final_macs(ddims) * BG, moved, tag))
         log(f"  final_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
+        if tag == "bf16":
+            decode_core(run, w, stages[0][1], emb)
 
         wd = PackedNet(den_math, den_dims, dt, dev)
         input_emb = compute_input_emb(wd.aux, z_pc)
@@ -679,10 +697,27 @@ def kernel_phase(run: Run, vae, ddm, diffusion, dev) -> None:
                 r["err"] = max(r["err"], err)
 
 
+def decode_core(run: Run, w, x, emb) -> None:
+    """The decode's core after the init conv (``x``: its output, ``emb``
+    the FiLM input, bf16 at BG rows) two ways, timed only: the route the
+    decoder takes, 4 ``stage_kernel`` launches and ``final_kernel``, and
+    one ``full_kernel`` launch (the fused route, not taken by the decoder)."""
+    from graspldm_tpu_torch.models.stacked_cuda import full_apply
+
+    c_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
+    f_ms = cuda_ms(lambda: full_apply(w, x, emb), 10)
+    b = full_bound(w, x.shape[0], nbytes(x, emb, w.math_flat, w.layout) + x.shape[0] * 16 * 2)
+    log(f"  decode core bf16 BG={x.shape[0]}: the chain of 5 launches (the decoder's route) "
+        f"{c_ms:.3f} ms, full_kernel {f_ms:.3f} ms (timing only); bound {b['bound_ms']:.4f} ms")
+    run.records[("final_kernel", "fpc")]["bf16"]["decode_core"] = dict(
+        BG=x.shape[0], chain_ms=c_ms, full_kernel_ms=f_ms, bound_ms=b["bound_ms"])
+
+
 def control_phase(run: Run) -> None:
     """bf16 ``ddim_sampler_kernel`` (tensor cores) beside
-    ``dpmpp_sampler_kernel`` (the same network on the CUDA cores), ms a
-    step, at fpc and ppc, from the kernel phases' timings of this run."""
+    ``dpmpp_sampler_kernel`` (the same network, on the body named by
+    ``TENSOR_CORE_KERNELS``), ms a step, at fpc and ppc, from the kernel
+    phases' timings of this run."""
     steps = {("ddim_sampler_kernel", "fpc"): STEPS, ("ddim_sampler_kernel", "ppc"): PPC_STEPS["ddim"],
              ("dpmpp_sampler_kernel", "fpc"): EDM_STEPS["dpmpp"],
              ("dpmpp_sampler_kernel", "ppc"): PPC_STEPS["dpmpp"]}
@@ -692,8 +727,10 @@ def control_phase(run: Run) -> None:
         a = ddim["ms"] / steps[("ddim_sampler_kernel", config)]
         b = dpmpp["ms"] / steps[("dpmpp_sampler_kernel", config)]
         ddim["vs_dpmpp_per_step"] = a / b
+        body = ("tensor cores" if ("dpmpp_sampler_kernel", "bf16") in TENSOR_CORE_KERNELS
+                else "CUDA cores")
         log(f"[control] {config} bf16: ddim_sampler_kernel {a:.4f} ms a step (tensor cores), "
-            f"dpmpp_sampler_kernel {b:.4f} ms a step (CUDA cores): {a / b:.3f} of it")
+            f"dpmpp_sampler_kernel {b:.4f} ms a step ({body}): {a / b:.3f} of it")
 
 
 def sampler_runs(w, ed, input_emb, x_unit, noise, steps: dict, sched=None):
@@ -732,13 +769,16 @@ def sampler_runs(w, ed, input_emb, x_unit, noise, steps: dict, sched=None):
     return runs
 
 
-def hold(run: Run, w, runs, steps: dict, config: str, bg: int, mode: str, refs: dict,
+def hold(run: Run, w, math_w, runs, steps: dict, config: str, bg: int, mode: str, refs: dict,
          full_bg: int, full_steps: dict) -> None:
     """Each sampler kernel of ``runs`` (from :func:`sampler_runs` over ``bg``
     rows, ``steps`` per kind) against its plain version. ``mode``: "full"
-    (the record's own shape: also timed, and the bf16 spread printed),
-    "ragged" (a ragged BG) or "short" (the EDM rounding-point check, bf16
-    only). float32 runs first and leaves its plain results in ``refs``."""
+    (the record's own shape: also timed, the bf16 spread printed, and the
+    float32 DPM++ sampler held to ``trajectory_controls``), "ragged" (a
+    ragged BG) or "short" (the EDM rounding-point check, bf16 only). float32
+    runs first and leaves its plain results in ``refs``."""
+    from graspldm_tpu_torch.models import cuda_sampler as cs
+
     L, tag = w.dims.seq_len, tag_of(w.dtype)
     for name, kind, kern, plain, evals, ops in runs:
         ref = plain()
@@ -762,6 +802,11 @@ def hold(run: Run, w, runs, steps: dict, config: str, bg: int, mode: str, refs: 
             dict(BG=bg, steps=n, max_abs_err=err, **({"sampler": kind} if ddim else {})))
         if mode == "full":
             r["err"] = max(err, r.get("err", 0.0))
+        if mode == "full" and tag == "fp32" and kind == "dpmpp":
+            r["trajectory_controls"] = trajectory_controls(
+                run, f"{name} {config} BG={bg}", w, math_w,
+                lambda wn: cs.dpmpp_sampler_plain(wn, *ops, False), "dpmpp_sampler_plain", n,
+                {name: got})
         if tag == "fp32":
             refs[(kind, mode)] = ref
         elif mode != "ragged":
@@ -796,8 +841,8 @@ def edm_kernel_phase(run: Run, ddm, ed, dev) -> None:
         input_emb = compute_input_emb(w.aux, z_pc)
         for steps, mode in ((EDM_STEPS, "full"), (short, "short")):
             log(f"[kernels] EDM fpc {tag_of(dt)}, BG={BG}, {mode}")
-            hold(run, w, sampler_runs(w, ed, input_emb, x_unit, noise, steps), steps, "fpc", BG,
-                 mode, refs, BG, EDM_STEPS)
+            hold(run, w, math_w, sampler_runs(w, ed, input_emb, x_unit, noise, steps), steps,
+                 "fpc", BG, mode, refs, BG, EDM_STEPS)
     run.records[("churn_sampler_kernel", "fpc")]["fp32"]["packing"] = packing
 
 
@@ -829,7 +874,7 @@ def ppc_kernel_phase(run: Run, ddm, ed, sched, dev) -> None:
             input_emb = compute_input_emb(w.aux, z_pc[:bg])
             runs = sampler_runs(w, ed, input_emb, x_unit[:bg].contiguous(),
                                 noise[:, :bg].contiguous(), steps, sched)
-            hold(run, w, runs, steps, "ppc", bg, mode, refs, PPC_BG, PPC_STEPS)
+            hold(run, w, math_w, runs, steps, "ppc", bg, mode, refs, PPC_BG, PPC_STEPS)
     run.records[("churn_sampler_kernel", "ppc")]["fp32"]["packing"] = packing
 
 
@@ -924,6 +969,7 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
     The float32 kernels on the split are held against the split controls
     (``step_controls``; DDIM also ``trajectory_controls``)."""
     from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
+    from graspldm_tpu_torch.models import cuda_sampler as cs
     from graspldm_tpu_torch.models.stacked_cuda import PackedNet
     from graspldm_tpu_torch.models.stacked_denoiser import compute_input_emb, pack_math_weights
 
@@ -984,8 +1030,14 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
                 e = run.compare(f"{name} {kind} x {n} launches vs the whole-trajectory kernel "
                                 f"{config} BG={bg}", chain, whole, *cw)
                 bitwise = bool(torch.equal(chain, whole))
+                # a reading, not a check: dpmpp_step_kernel runs the CUDA-core
+                # body, dpmpp_sampler_kernel the tensor cores (TENSOR_CORE_KERNELS)
                 log(f"  {name} {tag} {kind}: {n} launches bitwise equal to the whole-trajectory "
-                    f"kernel: {bitwise}")
+                    f"kernel: {bitwise}" + (" (need not be: the step kernel runs the CUDA "
+                                            "cores, the sampler the tensor cores)"
+                                            if kind == "dpmpp" and (
+                                                "dpmpp_sampler_kernel", tag) in
+                                            TENSOR_CORE_KERNELS else ""))
                 cvw = dict(steps=n, max_abs_err=e, bitwise_equal=bitwise)
                 if kind == "ddpm":
                     r["chain_vs_whole_ddpm"] = cvw
@@ -996,8 +1048,11 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
                     r["split_controls"] = step_controls(
                         run, label, kind, w, math_w, traj, sched, ed, input_emb, noise, n)
                     if kind == "ddim":
+                        tables = cs.sampler_tables(w, sched, input_emb, n, "ddim", "fixed_large")
                         r["trajectory_controls"] = trajectory_controls(
-                            run, label, w, math_w, sched, input_emb, x_unit, n,
+                            run, label, w, math_w,
+                            lambda wn: cs.sampler_plain(wn, x_unit, *tables, None, True, 1.0),
+                            "sampler_plain", n,
                             {f"x {n} launches": chain, "ddim_sampler_kernel": whole})
 
 
@@ -1057,27 +1112,24 @@ def step_controls(run: Run, label: str, kind: str, w, math_w, traj, sched, ed, i
         "chain", got, ref, chain, bf16, hold_bf16=kind != "ddim"))
 
 
-def trajectory_controls(run: Run, label: str, w, math_w, sched, input_emb, x_unit, n: int,
+def trajectory_controls(run: Run, label: str, w, math_w, plain, ref_name: str, n: int,
                         outs: dict) -> dict:
-    """The split controls of the float32 DDIM kernels over a whole n-step
-    trajectory, for each x_0 of ``outs`` (what -> x_0): its error against
-    ``sampler_plain`` within ``SPLIT_VS_CUDA_CORES`` of the error of the
-    same plain steps through the float32 stage chain (``chain_net``), and
-    the plain steps with a bf16 network above ``TOL_FP32``."""
+    """The split controls of a float32 sampler kernel (the DDIM pair, the
+    DPM++ sampler) over a whole n-step trajectory, for each x_0 of ``outs``
+    (what -> x_0): its error against ``plain(w)`` (the plain trajectory,
+    ``ref_name``, of pack ``w``) within ``SPLIT_VS_CUDA_CORES`` of the error
+    of the same plain steps through the float32 stage chain
+    (``chain_net``), and the plain steps with a bf16 network (the bf16
+    pack, the same float32 tables) above ``TOL_FP32``."""
     from graspldm_tpu_torch.models import cuda_sampler as cs
     from graspldm_tpu_torch.models.stacked_cuda import PackedNet
-
-    tables = cs.sampler_tables(w, sched, input_emb, n, "ddim", "fixed_large")
-
-    def plain(wn):
-        return cs.sampler_plain(wn, x_unit, *tables, None, True, 1.0)
 
     ref = plain(w)
     with mock.patch.object(cs, "_net_plain", chain_net):
         chain = plain(w)
     bf16 = plain(PackedNet(math_w, w.dims, torch.bfloat16, w.device))
     torch.cuda.synchronize()
-    return {what: control_verdicts(run, f"{label} {what}, x_0 of {n} steps", "sampler_plain",
+    return {what: control_verdicts(run, f"{label} {what}, x_0 of {n} steps", ref_name,
                                    f"the same {n} plain steps through the fp32 stage chain",
                                    got, ref, chain, bf16)
             for what, got in outs.items()}
@@ -1655,9 +1707,12 @@ def guided_phase(run: Run, cls_fpc, fpc, fpc_edm, region_ppc, dev) -> None:
          per_call_full(EDM_STEPS["dpmpp"])),
         ("region EDM ppc dpmpp, cfg", "ppc", region_ppc, pc1, meta1, "dpmpp", EDM_STEPS["dpmpp"],
          dict(region_points=region, cfg_scale=CFG_SCALE), per_call_full(EDM_STEPS["dpmpp"])),
-        # the float32 churn_sampler_kernel: the region embedding folded in
+        # the float32 churn_sampler_kernel and dpmpp_sampler_kernel: the region
+        # embedding folded in
         ("region EDM ppc churn, unguided", "ppc", region_ppc, pc1, meta1, "churn",
          EDM_STEPS["churn"], dict(region_points=region), per_call("churn_sampler_kernel")),
+        ("region EDM ppc dpmpp, unguided", "ppc", region_ppc, pc1, meta1, "dpmpp",
+         EDM_STEPS["dpmpp"], dict(region_points=region), per_call("dpmpp_sampler_kernel")),
     ]
     for label, config, models, pc, m, sampler, steps, kw, expect in calls:
         b = pc.shape[0]
@@ -2391,15 +2446,16 @@ TENSOR_CORE_KERNELS = {("mm_chain_kernel", "f32"), ("mm_chain_kernel", "bf16"),
                        ("ddim_sampler_kernel", "bf16"), ("ddim_sampler_kernel", "fp32"),
                        ("ddim_step_kernel", "fp32"), ("full_kernel", "bf16"),
                        ("full_kernel", "fp32"), ("stage_kernel", "bf16"),
-                       ("churn_sampler_kernel", "fp32"), ("churn_step_kernel", "fp32")}
+                       ("final_kernel", "bf16"), ("churn_sampler_kernel", "fp32"),
+                       ("churn_step_kernel", "fp32"), ("dpmpp_sampler_kernel", "fp32")}
 
 
 def sass_check(run: Run) -> None:
     """``cuobjdump -sass`` of every built library: the kernels of
     TENSOR_CORE_KERNELS issue HMMA, every other kernel (the float32
-    ``stage_kernel``, ``final_kernel``, the DPM++ kernels, the bf16
-    ``ddim_step_kernel`` and the bf16 churn kernels among them) none, and no
-    kernel a TF32 HMMA.
+    ``stage_kernel`` and ``final_kernel``, ``dpmpp_step_kernel``, the bf16
+    ``ddim_step_kernel``, ``dpmpp_sampler_kernel`` and churn kernels among
+    them) none, and no kernel a TF32 HMMA.
     Instances are named by their template argument (a micro-benchmark
     kernel's form, or bf16 / fp32)."""
     from graspldm_tpu_torch.cuda_build import library_path, nvcc_path
@@ -2563,6 +2619,7 @@ def kernels_line(run: Run) -> dict:
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
                for k in ("chain_ms", "timed_at", "unsplit_chain_ms", "attention_ms",
                          "chain_vs_unsplit", "reps1_ms", "vs_dpmpp_per_step", "packing",
+                         "decode_core",
                          "split_controls", "trajectory_controls", "chain_vs_whole_ddpm")
                if k in t},
             **({"err_checked_at_fp32": fp["err_checked_at"]}

@@ -16,6 +16,33 @@
 // weights stream through L1/L2. The only device-memory traffic is x_T,
 // embin and the tables in, x_0 out, and the weights.
 //
+// The network (kDpmppTc, kDpmppThreads in sampler_body.cuh), both dtypes at
+// 512 threads (kTcThreads) and tc_rows_per_block's rows. Times and errors
+// from tools/kernel_variants.py (H100 80GB HBM3, 700.00 W; fpc BG = 4096 /
+// ppc BG = 1024, 32 steps), each against the sources with the decision
+// undone:
+//   * float32: net_step<float, true>, the float32 DDIM sampler's body (the
+//     exact bf16 split on the tensor cores): 52.1 / 52.0 ms (on the CUDA
+//     cores at 256 threads: 137.2 / 106.6, chip_smoke.py). 8 rows a block
+//     at fpc, where the plan fits 9 (9 rows: 69.2 ms); ppc 2 rows. The
+//     second carry vector (old) leaves the rows as they are. Block 0 of an
+//     evaluation stages 24 of its 30 products at fpc and all 30 at ppc, none
+//     short of room (--staging). Registers: 128, with 304 bytes of spill
+//     stores and 844 of loads (the float32 DDIM sampler's). Its error over
+//     32 steps reads 1.00x that of the same plain steps through the float32
+//     stage chain (chip_smoke.py's CUDA-core control).
+//   * bf16: net_step<bf16, false>, the CUDA-core body, its arithmetic
+//     unchanged: 67.0 / 74.0 ms against 100.0 / 106.3 at 256 threads (128
+//     registers and no spill, where 256 threads held it to 80 and spilled
+//     36 bytes). On the tensor cores (ddim_sampler_kernel<bf16>'s body) it
+//     reads 24.2 / 24.8 ms but fails TOL_BF16_EDM_STEP_MEAN (2^-10.5 =
+//     6.9e-4 of max(1, max|x_0|), the mean over a 2-step trajectory) at ppc:
+//     9.0e-4 in chip_smoke.py, where the CUDA-core kernel reads 9.7e-5
+//     (fpc: 2.7e-4 against 1.6e-5), and the card tests' 2-step limit at fpc
+//     and ppc. The summation order of churn's (churn_sampler.cu): bf16 stays
+//     on the CUDA cores until a check holds the tensor cores' order
+//     (ROADMAP.md).
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
 // interface, loaded with ctypes; see graspldm_tpu_torch/cuda_build.py).
 #include "sampler_body.cuh"
@@ -25,7 +52,7 @@ using namespace gl;
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kDpmppThreads<T>)
 dpmpp_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embin,
                      const float* __restrict__ trows, const float* __restrict__ coefs,
                      const T* __restrict__ Wf, const long long* __restrict__ net,
@@ -43,7 +70,8 @@ dpmpp_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ emb
 
   for (int s = 0; s < S; ++s) {
     const float* c = coefs + (size_t)s * 8;
-    const float* nout = net_step(b, X, c[0], trows + (size_t)s * CeE, R, L, E, Ce, G, Wf, net);
+    const float* nout =
+        net_step<T, kDpmppTc<T>>(b, X, c[0], trows + (size_t)s * CeE, R, L, E, Ce, G, Wf, net);
     for (int idx = threadIdx.x; idx < R * L; idx += blockDim.x) {
       const float x = X[idx];
       float den = c[1] * x + c[2] * nout[idx];
@@ -61,9 +89,10 @@ template <typename T>
 int launch_dpmpp(const float* xT, const float* embin, const float* trows, const float* coefs,
                  const void* w, const long long* net, float* out, int BG, int S, int L, int E,
                  int Ce, int G, int cmax, int clamp, cudaStream_t st) {
-  return launch_rows<T>(dpmpp_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 2), BG, st, xT,
-                        embin, trows, coefs, (const T*)w, net, out, BG, S, L, E, Ce, G, cmax,
-                        clamp);
+  return launch_tc_rows<T, kDpmppThreads<T>>(dpmpp_sampler_kernel<T>,
+                                             sampler_plan(L, cmax, E, Ce, G, 2), L, BG, st, xT,
+                                             embin, trows, coefs, (const T*)w, net, out, BG, S,
+                                             L, E, Ce, G, cmax, clamp);
 }
 
 }  // namespace

@@ -15,15 +15,17 @@
 // trajectory: no activation ever goes to device memory between ops or
 // steps), and reads each weight once per R rows.
 //
-// ddim_sampler_kernel (both dtypes) and the bf16 stage_kernel run their
-// convs, projections and the attention's wqkv / wo products on the tensor
-// cores (mma.sync.m16n8k16, float32 accumulators, 512 threads; tc_blocks.cuh):
+// ddim_sampler_kernel (both dtypes), the bf16 stage_kernel and the bf16
+// final_kernel run their convs, projections and the attention's wqkv / wo
+// products on the tensor cores (mma.sync.m16n8k16, float32 accumulators,
+// 512 threads; tc_blocks.cuh):
 // the block's R*L tokens are the product's M, A fragments come from the
 // activations in shared memory through ldmatrix, B from a fragment-ordered
 // bf16 copy of the weights made at packing time, found through the
-// layout's tensor-core table (stage_kernel takes the layout and its stage
-// index for it). Their rounding points are the CUDA-core body's; only the
-// order of the float32 sums differs. On the main path stage_kernel<bf16>
+// layout's tensor-core table (stage_kernel and final_kernel take the
+// layout and their record's index for it). Their rounding points are the
+// CUDA-core body's; only the order of the float32 sums differs. On the
+// main path stage_kernel<bf16>
 // runs the decoder's stages at L = 16, where its plan holds 10, 9, 7 and 6
 // rows (M = 160, 144, 112 and 96 tokens: 5, 4.5, 3.5 and 3 warp units of
 // 32 tokens, which go round the 16 warps); each product's staging copy
@@ -48,10 +50,25 @@
 // and reads 6 value by value (stage 0's 4-wide convs and wqkv, off the
 // 16-wide k-step), a ppc one stages all 30, and none lacks room
 // (--staging).
-// final_kernel and the float32 stage_kernel keep the CUDA-core body
+// final_kernel<bf16> (the decoder's final ResnetBlock and 1x1 head at
+// L = 16, C = 256; one launch a decode) runs its two k3 convs through
+// TcProducts, the head on the CUDA cores. It carves full_kernel's stage
+// plan at width C: the QKV buffer, dead in the final block, holds each
+// conv's staged A operand (M + 1 tokens of C + 8 values), and the plan fits
+// 4 rows (M = 64: 2 warp units of 32 tokens by 16 column pairs, 2 units a
+// warp). At BG = 4096 it takes 0.766 ms, 0.184 at 1021 (on the CUDA cores
+// at 256 threads: 4.93; the bound 0.052 ms, bf16 peak), 100 registers, no
+// spill, both convs staged (--staging). Against the sources with each
+// decision undone (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W):
+// final_plan with staging room in OUT, 6 rows (M = 96, 3 units a warp;
+// 683 blocks in 6 waves of 132 where 4 rows take 1024 in 8), 0.803 /
+// 0.258 ms; final_plan's 8 rows with no room, A read value by value,
+// 2.118 / 0.520.
+// The float32 final_kernel and stage_kernel keep the CUDA-core body
 // (resnet1d_blocks.cuh: one vector load of a weight row reused over a
-// 4-token register tile, fp32 FMAs); the float32 stage chain is the
-// CUDA-core control of the float32 tensor-core kernels' exact bf16 split.
+// 4-token register tile, fp32 FMAs; final_kernel<float> at 256 threads and
+// final_plan's rows, as before); the float32 stage chain is the CUDA-core
+// control of the float32 tensor-core kernels' exact bf16 split.
 // wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
@@ -98,13 +115,26 @@ stage_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
     if (row0 + idx / Wo < BG) out[(size_t)row0 * Wo + idx] = b.OUT[idx];
 }
 
+// The final block's plan: bf16 carves full_kernel's stage plan at width C,
+// whose QKV buffer, dead in the final block, holds each conv's staged A
+// operand; float32 keeps the CUDA-core body's final_plan
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ inline Plan final_tc_plan(int L, int C, int E, int G) {
+  return sizeof(T) == 2 ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);
+}
+
+// the final resblock and the 1x1 head: record n_st of the layout `net`
+// (the record after the n_st stages) and, for bf16, its entries of the
+// tensor-core table
+template <typename T>
+__global__ void __launch_bounds__(sizeof(T) == 2 ? kTcThreads : kThreads)
 final_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restrict__ Wf,
-             const long long* __restrict__ rec, T* __restrict__ out, int BG, int L, int C,
-             int E, int Ce, int G, int R) {
+             const long long* __restrict__ net, int n_st, T* __restrict__ out, int BG, int L,
+             int C, int E, int Ce, int G, int R) {
+  constexpr bool TC = sizeof(T) == 2;
   extern __shared__ __align__(16) char smem[];
-  const Bufs<T> b = carve<T>(smem, final_plan(L, C, E, G), R);
+  const Bufs<T> b = carve<T>(smem, final_tc_plan<T>(L, C, E, G), R);
+  const long long* rec = net + NET_HDR + n_st * REC_SIZE;
   const int row0 = blockIdx.x * R;
   const int W = L * C;
   for (int idx = threadIdx.x; idx < R * W; idx += blockDim.x) {
@@ -113,7 +143,8 @@ final_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
   }
   emb_sum_rows(emb, b.ESUM, row0, R, BG, E, Ce);
   __syncthreads();
-  resblock(b, b.X, R, L, C, E, Ce, G, Wf, rec + R_RES1);
+  resblock(b, b.X, R, L, C, E, Ce, G, Wf, rec + R_RES1,
+           piece_products<T, TC>(b, b.OUT, Wf, net, n_st * TC_REC + T_R1, PIECE_RES));
   head(b.X, R * L, C, Wf, rec, [&](int m, float v) {
     if (row0 + m / L < BG) out[(size_t)row0 * L + m] = from_f<T>(v);
   });
@@ -170,10 +201,15 @@ int launch_stage(const void* x, const void* emb, const void* w, const long long*
 }
 
 template <typename T>
-int launch_final(const void* x, const void* emb, const void* w, const long long* rec, void* out,
-                 int BG, int L, int C, int E, int Ce, int G, cudaStream_t st) {
-  return launch_rows<T>(final_kernel<T>, final_plan(L, C, E, G), BG, st, (const T*)x,
-                        (const T*)emb, (const T*)w, rec, (T*)out, BG, L, C, E, Ce, G);
+int launch_final(const void* x, const void* emb, const void* w, const long long* net, int n_st,
+                 void* out, int BG, int L, int C, int E, int Ce, int G, cudaStream_t st) {
+  const Plan p = final_tc_plan<T>(L, C, E, G);
+  if constexpr (sizeof(T) == 2)
+    return launch_tc_rows<T>(final_kernel<T>, p, L, BG, st, (const T*)x, (const T*)emb,
+                             (const T*)w, net, n_st, (T*)out, BG, L, C, E, Ce, G);
+  else
+    return launch_rows<T>(final_kernel<T>, p, BG, st, (const T*)x, (const T*)emb, (const T*)w,
+                          net, n_st, (T*)out, BG, L, C, E, Ce, G);
 }
 
 template <typename T>
@@ -204,11 +240,11 @@ int gl_stage_forward(int dtype, const void* x, const void* emb, const void* w,
 }
 
 int gl_final_forward(int dtype, const void* x, const void* emb, const void* w,
-                     const long long* rec, void* out, int BG, int L, int C, int E, int Ce, int G,
-                     void* stream) {
+                     const long long* net, int n_st, void* out, int BG, int L, int C, int E,
+                     int Ce, int G, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_final<float>(x, emb, w, rec, out, BG, L, C, E, Ce, G, st);
-  return launch_final<__nv_bfloat16>(x, emb, w, rec, out, BG, L, C, E, Ce, G, st);
+  if (dtype == 0) return launch_final<float>(x, emb, w, net, n_st, out, BG, L, C, E, Ce, G, st);
+  return launch_final<__nv_bfloat16>(x, emb, w, net, n_st, out, BG, L, C, E, Ce, G, st);
 }
 
 int gl_ddim_sample(int dtype, const float* xT, const float* embin, const float* trows,

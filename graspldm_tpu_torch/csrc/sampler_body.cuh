@@ -14,9 +14,11 @@
 // layout's tensor-core table, at 512 threads (kTcThreads):
 // ddim_sampler_kernel and full_kernel in both dtypes, ddim_step_kernel in
 // float32 (kDdimStepTc), the float32 churn_sampler_kernel and
-// churn_step_kernel (kChurnTc); the float32 instances through the exact
-// bf16 split. The bf16 churn kernels run resnet1d_blocks.cuh's CUDA-core
-// body at 512 threads, the DPM++ sampler and step kernels at 256.
+// churn_step_kernel (kChurnTc) and the float32 dpmpp_sampler_kernel
+// (kDpmppTc); the float32 instances through the exact bf16 split. The
+// bf16 churn kernels and the bf16 dpmpp_sampler_kernel run
+// resnet1d_blocks.cuh's CUDA-core body at 512 threads, dpmpp_step_kernel
+// at 256.
 #pragma once
 
 #include "tc_blocks.cuh"
@@ -94,6 +96,13 @@ template <typename T> constexpr int kChurnThreads = kTcThreads;
 template <typename T> constexpr bool kDdimStepTc = sizeof(T) == 4;
 template <typename T> constexpr int kDdimStepThreads = kTcThreads;
 
+// dpmpp_sampler_kernel (dpmpp_sampler.cu): the network on the tensor cores
+// in float32 (through the exact bf16 split) and on the CUDA cores in bf16
+// (dpmpp_sampler.cu says why), 512 threads in both dtypes,
+// tc_rows_per_block's rows
+template <typename T> constexpr bool kDpmppTc = sizeof(T) == 4;
+template <typename T> constexpr int kDpmppThreads = kTcThreads;
+
 // Load the block's rows of x_T into the first carry vector b.XC[0, R*L)
 // and of the conditioning embedding into b.EMBIN; rows past BG read 0.
 template <typename T>
@@ -152,7 +161,8 @@ __device__ __forceinline__ void net_body(const Bufs<T>& b, int n_st, int R, int 
 // synchronised) and until the next net_step. TC: the products on the
 // tensor cores (net_body<T, true>; float32 T through the exact bf16 split),
 // for a caller launched with kTcThreads threads: ddim_sampler_kernel, the
-// float32 ddim_step_kernel and churn kernels. Forced inline: without it
+// float32 ddim_step_kernel, churn kernels and dpmpp_sampler_kernel. Forced
+// inline: without it
 // the float32 churn kernels, whose one call site sits in a loop over steps
 // and legs, read 471 ms against 351 at fpc BG = 4096 (ppc 1024: 504
 // against 359), and ddim_sampler_kernel<float> 230.0 against 163.3 (ppc:

@@ -32,14 +32,18 @@
 // whole-trajectory kernel (sampler_plan with the same carry count, net_step
 // in sampler_body.cuh), so a block holds the same rows and computes the same
 // arithmetic; only the fp32 carry goes through device memory between steps
-// (exactly: it is fp32 on both sides). dpmpp_step_kernel runs the
-// CUDA-core body at 256 threads (16 bf16 / 9 fp32 rows at fpc, 4 / 2 at
-// ppc). ddim_step_kernel and churn_step_kernel run their network on the
-// tensor cores in float32, through the exact bf16 split, and on the CUDA
-// cores in bf16 (kDdimStepTc, kChurnTc in sampler_body.cuh), at 512
-// threads and tc_rows_per_block's rows (16 bf16 / 8 fp32 at fpc, 4 / 2 at
-// ppc). churn_step_kernel: one launch at step 50 of 100 takes 3.34 / 3.32
-// ms in float32 and 4.31 / 4.77 in bf16 at fpc BG = 4096 / ppc BG = 1024
+// (exactly: it is fp32 on both sides). All but dpmpp_step_kernel, which
+// runs the CUDA-core body at 256 threads (16 bf16 / 9 fp32 rows at fpc, 4 /
+// 2 at ppc) where its twin dpmpp_sampler_kernel runs 512 threads,
+// tc_rows_per_block's rows and, in float32, the tensor cores (kDpmppTc):
+// the same function, its float32 sums in another order (the step kernel is
+// next in ROADMAP.md's queue). ddim_step_kernel and churn_step_kernel run
+// their network on the tensor cores in float32, through the exact bf16
+// split, and on the CUDA cores in bf16 (kDdimStepTc, kChurnTc in
+// sampler_body.cuh), at 512 threads and tc_rows_per_block's rows (16 bf16
+// / 8 fp32 at fpc, 4 / 2 at ppc). churn_step_kernel: one launch at step
+// 50 of 100 takes 3.34 / 3.32 ms in float32 and 4.31 / 4.77 in bf16 at fpc
+// BG = 4096 / ppc BG = 1024
 // (bf16 at 256 threads: 6.30 / 6.71); churn_sampler.cu gives the decisions.
 // ddim_step_kernel, against the sources with each decision undone
 // (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W; step 50 of 100, the

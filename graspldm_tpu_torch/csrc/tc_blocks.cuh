@@ -1,9 +1,10 @@
 // The network's products on the tensor cores: TcProducts<T>, for the
 // network bodies of ddim_sampler_kernel (both dtypes; kernels.cu),
 // full_kernel<bf16> and full_kernel<float> (full_net.cu), the float32
-// ddim_step_kernel, churn_sampler_kernel and churn_step_kernel
-// (step_samplers.cu, churn_sampler.cu; all through net_body in
-// sampler_body.cuh) and stage_kernel<bf16> (kernels.cu).
+// ddim_step_kernel, churn_sampler_kernel, churn_step_kernel and
+// dpmpp_sampler_kernel (step_samplers.cu, churn_sampler.cu,
+// dpmpp_sampler.cu; all through net_body in sampler_body.cuh), and
+// stage_kernel<bf16> and final_kernel<bf16> (kernels.cu).
 //
 // What moves here from resnet1d_blocks.cuh's CUDA-core products: the
 // resblocks' two k3 convs, the k3 projection (conv3) and the attention's
@@ -14,7 +15,7 @@
 // softmaxes and the L x L score and value products stay on the CUDA cores
 // (the scores in another summation order, below).
 //
-// float32 (full_kernel<float>, the float32 DDIM and churn kernels): the exact bf16
+// float32 (full_kernel<float>, the float32 DDIM, DPM++ and churn kernels): the exact bf16
 // split. The function stays the float32 one. A float32 value is the sum of
 // three bf16 values exactly (8 + 8 + 8 significant bits hold its 24
 // wherever no part underflows bf16):
@@ -39,8 +40,9 @@
 //   x kTcNT = 2 n-tiles (16 columns) over the whole depth; the units of a
 //   product go round the 16 warps, token pairs fastest: at M = 64 (every
 //   bf16 network body at fpc and ppc) that is the 2 (M) x 8 (N) warp grid,
-//   looping over column groups where N > 128; at M = 32 (full_kernel<float>
-//   and the float32 DDIM and churn kernels at fpc and ppc) 16 warps over 256
+//   looping over column groups where N > 128 (final_kernel<bf16>'s 4 rows
+//   at the decoder too); at M = 32 (full_kernel<float> and the float32
+//   DDIM, DPM++ and churn kernels at fpc and ppc) 16 warps over 256
 //   columns; at M = 96-160 (the bf16 decoder stages) 3 to 5 token pairs.
 //   A unit finds its tokens' positions in their rows once (the k3 conv's
 //   taps test them against the row's ends), not at each tap. An m-tile

@@ -204,10 +204,6 @@ class PackedNet:
         fragment-ordered copies): what one pass of the network reads."""
         return self.flat[: self.n_math]
 
-    def record_ptr(self, index: int) -> int:
-        """Device address of record ``index`` (stages 0.., then final)."""
-        return self.layout.data_ptr() + 8 * (NET_HDR + index * REC_SIZE)
-
     def v(self, name: str) -> torch.Tensor:
         """A weight as float32 values (exact for both dtypes)."""
         return self.w[name].float()
@@ -473,9 +469,8 @@ def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tenso
     _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
     out = torch.empty((BG, L), dtype=w.dtype, device=x.device)
     rc = load_library().gl_final_forward(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat),
-        ctypes.c_void_p(w.record_ptr(len(d.block_channels))), _ptr(out), BG, L, C,
-        d.emb_dim, d.cond_channels, d.groups,
+        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout),
+        len(d.block_channels), _ptr(out), BG, L, C, d.emb_dim, d.cond_channels, d.groups,
         ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
     )
     check_launch(rc, "final_kernel")

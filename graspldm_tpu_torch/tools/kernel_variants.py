@@ -11,8 +11,9 @@ the VAE decoder), and the line prints each variant's lesser ms of its two
 turns and, for ``full_kernel``, its error against ``full_plain`` relative
 to max(1, max|ref|), beside the float32 stage chain's (the CUDA cores).
 ``--kernels`` limits the timed calls (and the sources built) to some of
-``full``, ``ddim``, ``stage`` and ``churn``. Each nvcc's ``-Xptxas -v``
-report gives every built kernel's registers and spills, a line each.
+``full``, ``ddim``, ``stage``, ``final``, ``churn`` and ``dpmpp``. Each
+nvcc's ``-Xptxas -v`` report gives every built kernel's registers and
+spills, a line each.
 
 The churn lines give, beside each variant's time, a mean error relative to
 max(1, max|ref|) that ``chip_smoke.py`` holds in bf16: of a 2-step
@@ -26,14 +27,21 @@ schedule), and give each variant's largest error of the float32 sampler
 against ``sampler_plain`` and its mean error over the first 3 chained
 DDIM steps against ``ddim_step_plain`` (the largest over the 3 states, at
 the full BG and at the ragged 1021), which chip_smoke.py holds in bf16
-(``TOL_BF16_STEP_MEAN["ddim"]``).
+(``TOL_BF16_STEP_MEAN["ddim"]``). The DPM++ lines time
+``dpmpp_sampler_kernel`` (32 steps) in both dtypes at the fpc and ppc
+denoisers, with the float32 kernel's largest error against
+``dpmpp_sampler_plain`` and the bf16 kernel's mean error over a 2-step
+trajectory (``TOL_BF16_EDM_STEP_MEAN``). The final-block lines time
+``final_kernel<bf16>`` at the VAE decoder (BG = 4096 and 1021) with its
+largest error against ``final_plain``.
 
 ``--staging`` builds the sources of the float32 tensor-core sampler kernels
-(the churn pair, the DDIM pair) once more with a counter of the path each
+(the DPM++ sampler, the churn pair, the DDIM pair) and of
+``final_kernel<bf16>`` once more with a counter of the path each
 tensor-core product of block 0 takes (its A staged in the dead buffers;
 read value by value for a width off the 16-wide k-step; or value by value
 for want of room, which must read 0) and prints the counts of one launch of
-each at the fpc and ppc denoisers.
+each at the fpc and ppc denoisers (the final block: at the decoder).
 
     python -m graspldm_tpu_torch.tools.kernel_variants [--kernels K ...] [--staging] [VARIANT ...]
 
@@ -65,7 +73,7 @@ from ..utils.profiling import device_line, timeit
 
 __all__ = ["VARIANTS", "patched_sources", "main"]
 
-_TC, _SB = "tc_blocks.cuh", "sampler_body.cuh"
+_TC, _SB, _K = "tc_blocks.cuh", "sampler_body.cuh", "kernels.cu"
 _BF16_CHURN_TC = (_SB, "template <typename T> constexpr bool kChurnTc = sizeof(T) == 4;",
                   "template <typename T> constexpr bool kChurnTc = true;")
 # each bf16 mma into a zeroed accumulator, its sum added to the running one
@@ -139,15 +147,33 @@ VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
         (_SB, "template <typename T> constexpr int kDdimStepThreads = kTcThreads;",
          "template <typename T> constexpr int kDdimStepThreads = sizeof(T) == 4 ? kTcThreads "
          ": kThreads;")],
+    "bf16 final block in 6 rows, staging room in OUT": [
+        (_K, "  return sizeof(T) == 2 ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
+         "  Plan p = final_plan(L, C, E, G);\n"
+         "  if (sizeof(T) == 2) p.out = up8((L + 1) * (C + 8));\n"
+         "  return p;")],
+    "bf16 final block in 8 rows, A value by value": [
+        (_K, "  return sizeof(T) == 2 ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
+         "  return final_plan(L, C, E, G);")],
+    "bf16 DPM++ on the tensor cores": [
+        (_SB, "template <typename T> constexpr bool kDpmppTc = sizeof(T) == 4;",
+         "template <typename T> constexpr bool kDpmppTc = true;")],
+    "bf16 DPM++ at 256 threads": [
+        (_SB, "template <typename T> constexpr int kDpmppThreads = kTcThreads;",
+         "template <typename T> constexpr int kDpmppThreads = sizeof(T) == 4 ? kTcThreads "
+         ": kThreads;")],
 }
 # the timed calls' sources
 _BUILT = {"full": ("full_net.cu",), "ddim": ("kernels.cu", "step_samplers.cu"),
-          "stage": ("kernels.cu",), "churn": ("churn_sampler.cu", "step_samplers.cu")}
-# the float32 tensor-core sampler kernels --staging counts: source, C entry
-_STAGED = {"churn_sampler_kernel": ("churn_sampler.cu", "gl_churn_sample"),
+          "stage": ("kernels.cu",), "final": ("kernels.cu",),
+          "churn": ("churn_sampler.cu", "step_samplers.cu"), "dpmpp": ("dpmpp_sampler.cu",)}
+# the tensor-core kernels --staging counts: source, C entry
+_STAGED = {"dpmpp_sampler_kernel": ("dpmpp_sampler.cu", "gl_dpmpp_sample"),
+           "churn_sampler_kernel": ("churn_sampler.cu", "gl_churn_sample"),
            "churn_step_kernel": ("step_samplers.cu", "gl_churn_step"),
            "ddim_sampler_kernel": ("kernels.cu", "gl_ddim_sample"),
-           "ddim_step_kernel": ("step_samplers.cu", "gl_ddim_step")}
+           "ddim_step_kernel": ("step_samplers.cu", "gl_ddim_step"),
+           "final_kernel": ("kernels.cu", "gl_final_forward")}
 # block 0's tensor-core products by path: staged, off the k-step, no room
 _STAGING = [
     (_TC, "namespace gl {\n", "namespace gl {\n__device__ unsigned long long gl_staged[3];\n"),
@@ -303,8 +329,9 @@ def _ddim_tables(w, sched, input_emb, n: int = 100):
 def staging(dev, gen, sched) -> None:
     """Print block 0's tensor-core products by path for one launch of each
     float32 tensor-core sampler kernel (2-step tables: 4 network evaluations
-    a churn sampler launch, 2 a churn step or DDIM sampler launch, 1 a DDIM
-    step) at the fpc and ppc EDM denoisers."""
+    a churn sampler launch, 2 a churn step, DDIM or DPM++ sampler launch, 1
+    a DDIM step) at the fpc and ppc EDM denoisers, and of
+    ``final_kernel<bf16>`` at the VAE decoder (BG = 4096)."""
     root = BUILD_DIR / "staging"
     sources = sorted({src for src, _ in _STAGED.values()})
     libs = _build({"staging": _STAGING}, sources, root=root.name)["staging"]
@@ -312,6 +339,22 @@ def staging(dev, gen, sched) -> None:
              for src in sources}
     ns = load_library()
     own = {entry: getattr(ns, entry) for _, entry in _STAGED.values()}
+
+    def count(name: str, what: str, evals: int, call: Callable) -> None:
+        read = reads[_STAGED[name][0]]
+        got = (ctypes.c_ulonglong * 3)()
+        for run in (False, True):  # the first read clears what came before
+            if run:
+                call()
+            torch.cuda.synchronize()
+            if read(got) != 0:
+                raise RuntimeError("gl_staging_counts failed")
+        print(f"staging {name} {what}, block 0 over {evals} evaluation(s): {got[0]} staged, "
+              f"{got[1]} value by value (width off the k-step), {got[2]} value by value (no "
+              f"room)", flush=True)
+        if got[2]:
+            raise AssertionError(f"{name}: {got[2]} products found no room")
+
     try:
         for entry in own:
             setattr(ns, entry, getattr(libs, entry))
@@ -323,7 +366,9 @@ def staging(dev, gen, sched) -> None:
             x_T, tables, noise = _churn_operands(w, ed, bg, gen, dev, 2)
             input_emb = tables[0].reshape(bg, dims.cond_channels, -1)
             embin, trows, coefs = _ddim_tables(w, sched, input_emb, 2)
+            dp = cs.dpmpp_tables(w, ed, input_emb, 2)
             calls = {
+                "dpmpp_sampler_kernel": (2, lambda: cs.dpmpp_sampler_apply(w, x_T, *dp)),
                 "churn_sampler_kernel": (4, lambda: cs.churn_sampler_apply(w, x_T, *tables, noise)),
                 "churn_step_kernel": (2, lambda: _churn_step(w, x_T, tables, noise, 0)),
                 "ddim_sampler_kernel": (2, lambda: cs.sampler_apply(w, x_T, embin, trows, coefs)),
@@ -331,22 +376,27 @@ def staging(dev, gen, sched) -> None:
                                                                    coefs[0])),
             }
             for name, (evals, call) in calls.items():
-                read = reads[_STAGED[name][0]]
-                got = (ctypes.c_ulonglong * 3)()
-                for run in (False, True):  # the first read clears what came before
-                    if run:
-                        call()
-                    torch.cuda.synchronize()
-                    if read(got) != 0:
-                        raise RuntimeError("gl_staging_counts failed")
-                print(f"staging {name} fp32 {label} L={dims.seq_len} BG={bg}, block 0 over "
-                      f"{evals} evaluation(s): {got[0]} staged, {got[1]} value by value (width off "
-                      f"the k-step), {got[2]} value by value (no room)", flush=True)
-                if got[2]:
-                    raise AssertionError(f"{name}: {got[2]} products found no room")
+                count(name, f"fp32 {label} L={dims.seq_len} BG={bg}", evals, call)
+        wd, xs, embd = _decoder_operands(dev, gen)
+        count("final_kernel", "bf16 decoder L=16 BG=4096", 1,
+              lambda: sc.final_apply(wd, xs[-1], embd))
     finally:
         for entry, fn in own.items():
             setattr(ns, entry, fn)
+
+
+def _decoder_operands(dev, gen):
+    """The bf16 VAE decoder's pack, the input of each of its launches (4
+    stages, then the final block) and the FiLM input, over 4096 rows."""
+    vae = build_flagship(FlagshipConfig(), generator=torch.Generator().manual_seed(0),
+                         device=dev)[0]
+    dd = decoder_dims_for(vae)
+    wd = sc.PackedNet(pack_math_weights(vae.decoder.net, dd), dd, torch.bfloat16, dev)
+    embd = torch.randn((4096, dd.cond_channels * dd.emb_dim), generator=gen,
+                       device=dev).to(torch.bfloat16)
+    xs = [torch.randn((4096, dd.seq_len * C), generator=gen, device=dev).to(torch.bfloat16)
+          for C in dd.cins + (dd.block_channels[-1],)]
+    return wd, xs, embd
 
 
 def _ddim_step_errors(libs, w, sched, input_emb, x_T, n: int = 3) -> Dict[str, float]:
@@ -384,7 +434,7 @@ def main(argv=None) -> None:
     p.add_argument("--kernels", nargs="+", choices=list(_BUILT), default=list(_BUILT),
                    help="the timed calls (default: all)")
     p.add_argument("--staging", action="store_true",
-                   help="also count the churn kernels' products by path")
+                   help="also count the tensor-core kernels' products by path")
     args = p.parse_args(argv)
     names = args.variants or list(VARIANTS)
     if "as built" not in names:
@@ -447,6 +497,24 @@ def main(argv=None) -> None:
                    _errors(libs, "gl_churn_step",
                            lambda: _churn_steps(w, x_T, tables, noise, 3), ref.float(), True),
                    what="3-step mean err")
+        for dt in (torch.bfloat16, torch.float32) if "dpmpp" in kernels else ():
+            w = sc.PackedNet(math_w, dims, dt, dev)
+            x_T, tables, _ = _churn_operands(w, ed, churn, gen, dev, 2)
+            dp = cs.dpmpp_tables(w, ed, tables[0].reshape(churn, dims.cond_channels, -1), 32)
+            tag = f"{'fp32' if dt == torch.float32 else 'bf16'} L={dims.seq_len} BG={churn}"
+            call = lambda: cs.dpmpp_sampler_apply(w, x_T, *dp)  # noqa: E731
+            if dt == torch.float32:  # chip_smoke.py holds it at TOL_FP32 (1e-4)
+                err = _errors(libs, "gl_dpmpp_sample", call,
+                              cs.dpmpp_sampler_plain(w, x_T, *dp, False))
+                what = "max err"
+            else:  # the 2-step trajectory's mean (TOL_BF16_EDM_STEP_MEAN, 6.9e-4)
+                dp2 = cs.dpmpp_tables(w, ed, tables[0].reshape(churn, dims.cond_channels, -1), 2)
+                err = _errors(libs, "gl_dpmpp_sample",
+                              lambda: cs.dpmpp_sampler_apply(w, x_T, *dp2),
+                              cs.dpmpp_sampler_plain(w, x_T, *dp2, False), True)
+                what = "2-step trajectory mean err"
+            report(f"dpmpp_sampler_kernel {tag} x 32 steps",
+                   _turns(libs, "gl_dpmpp_sample", call, 3), err, what=what)
         if "ddim" in kernels:
             # chip_smoke.py's step-kernel operands: its seed (SEED + 8), its draws
             g8 = torch.Generator(device=dev).manual_seed(8)
@@ -471,19 +539,21 @@ def main(argv=None) -> None:
                     err = _ddim_step_errors(libs, w, sched, emb[:bg], x_unit[:bg].contiguous())
                     report(f"ddim_step_kernel {tag} BG={churn}, one launch (step 50); "
                            f"3-step mean err at BG={bg}", ms, err, what="3-step mean err")
-    if "stage" not in kernels:
+    if not kernels & {"stage", "final"}:
         return
-    vae = build_flagship(FlagshipConfig(), generator=torch.Generator().manual_seed(0),
-                         device=dev)[0]
-    dd = decoder_dims_for(vae)
-    wd = sc.PackedNet(pack_math_weights(vae.decoder.net, dd), dd, torch.bfloat16, dev)
-    embd = torch.randn((4096, dd.cond_channels * dd.emb_dim), generator=gen,
-                       device=dev).to(torch.bfloat16)
-    xs = [torch.randn((4096, dd.seq_len * C), generator=gen, device=dev).to(torch.bfloat16)
-          for C in dd.cins]
-    report("stage_kernel bf16 L=16 BG=4096, a decode's 4 launches",
-           _turns(libs, "gl_stage_forward",
-                  lambda: [sc.stage_apply(wd, i, xs[i], embd) for i in range(len(xs))], 10))
+    wd, xs, embd = _decoder_operands(dev, gen)
+    if "stage" in kernels:
+        report("stage_kernel bf16 L=16 BG=4096, a decode's 4 launches",
+               _turns(libs, "gl_stage_forward",
+                      lambda: [sc.stage_apply(wd, i, xs[i], embd) for i in range(len(xs) - 1)],
+                      10))
+    if "final" in kernels:
+        for bg in (4096, 1021):
+            x, emb = xs[-1][:bg].contiguous(), embd[:bg].contiguous()
+            report(f"final_kernel bf16 L=16 BG={bg}",
+                   _turns(libs, "gl_final_forward", lambda: sc.final_apply(wd, x, emb), 10),
+                   _errors(libs, "gl_final_forward", lambda: sc.final_apply(wd, x, emb),
+                           sc.final_plain(wd, x, emb).float()))
 
 
 if __name__ == "__main__":

@@ -348,13 +348,15 @@ def test_tc_fragments_round_trip_to_the_math_form(taps, Ck, N):
     assert not padded[:, Ck:].any() and not padded[:, :, N:].any()
 
 
-@pytest.mark.parametrize("L", [4, 16])
-def test_bf16_pack_carries_the_tensor_core_table(nets, L):
+@pytest.mark.parametrize("net", [4, 16, "decoder"])
+def test_bf16_pack_carries_the_tensor_core_table(nets, net):
     """A bf16 PackedNet appends each tensor-core product's fragment-ordered
     weights after the math form and points the layout's table at them; the
     math form is unchanged (a float32 pack's table, of the exact bf16 split,
-    is held in test_torch_port_split.py)."""
-    math, dims = nets["den"][L]
+    is held in test_torch_port_split.py). The fpc and ppc denoisers (L = 4,
+    16) and the VAE decoder, whose final block's two slots final_kernel<bf16>
+    reads (final_w1, final_w2)."""
+    math, dims = (nets["dec_math"], nets["dec_dims"]) if net == "decoder" else nets["den"][net]
     f32 = sc.PackedNet(math, dims, torch.float32)
     w = sc.PackedNet(math, dims, torch.bfloat16)
     assert torch.equal(w.math_flat, f32.math_flat.to(torch.bfloat16))
@@ -593,8 +595,8 @@ EDM_TOLS = {torch.float32: {6: (1e-4, None)},
 def test_edm_sampler_kernels_match_plain_on_card(cuda, nets, dtype, L):
     """dpmpp_sampler_kernel and churn_sampler_kernel against their plain
     versions at L = 4 (fpc) and L = 16 (ppc), over a BG that is ragged at
-    every block size (16, 9, 8, 4 and 2 rows; 8: the float32 churn kernels'
-    fpc block, which runs the tensor cores), for 6 steps and (bf16) 2."""
+    every block size (16, 9, 8, 4 and 2 rows; 8: the float32 fpc block of
+    both, which run the tensor cores), for 6 steps and (bf16) 2."""
     math, dims = nets["den"][L]
     w = sc.PackedNet(math, dims, dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -689,11 +691,13 @@ def test_step_kernels_match_plain_steps_on_card(cuda, nets, dtype, L):
 @pytest.mark.parametrize("sampler", ["ddim", "ddpm", "dpmpp", "churn"])
 def test_step_launches_match_whole_trajectory_kernel_on_card(cuda, nets, sampler):
     """S step-kernel launches end where the whole-trajectory kernel does:
-    float32, 5 steps, to 1e-4 of max(1, max|x_0|) (the same step body and
-    block plan: for DDIM / DDPM and churn both on the tensor cores through
-    the exact bf16 split in 8-row blocks, for DPM++ both on the CUDA cores
-    in 9-row blocks; chip_smoke.py reports whether they are bitwise
-    equal)."""
+    float32, 5 steps, to 1e-4 of max(1, max|x_0|). For DDIM / DDPM and
+    churn the same step body and block plan (both on the tensor cores
+    through the exact bf16 split in 8-row blocks); for DPM++ the same
+    function in another summation order (dpmpp_step_kernel on the CUDA
+    cores in 9-row blocks, dpmpp_sampler_kernel on the tensor cores through
+    the split in 8-row blocks), so its launches need not be bitwise the
+    sampler's; chip_smoke.py reports whether they are."""
     math, dims = nets["den"][4]
     w = sc.PackedNet(math, dims, torch.float32, cuda)
     run = _trajectory_run(w, sampler, 37, 5, torch.Generator(device=cuda).manual_seed(10))
@@ -746,6 +750,17 @@ def test_churn_kernels_take_narrow_models_on_card(cuda, channels, dtype):
             assert (xk - xp).abs().mean().item() <= 2.0 ** -10.5 * scale
 
 
+def _chain_net(wn, x_in, embin, trow):
+    """``cuda_sampler._net_plain`` with the float32 stage chain for its
+    network (stage_kernel x 4 + final_kernel, the CUDA cores); the init conv
+    and the FiLM input as the plain version computes them."""
+    emb = torch.nn.functional.silu(embin + trow).to(wn.dtype)
+    h = sc.init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
+    for i in range(len(wn.dims.block_channels)):
+        h = sc.stage_apply(wn, i, h, emb)
+    return sc.final_apply(wn, h, emb).float()
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["ddim", "churn"])
 @pytest.mark.parametrize("L", [4, 16])
@@ -790,20 +805,63 @@ def test_float32_churn_step_kernel_within_the_cuda_core_control_on_card(cuda, ne
         def plain(wn, x_in, *a):
             return cs.churn_step_plain(wn, x_in, *a, False)
 
-    def chain_net(wn, x_in, embin_, trow):
-        emb = torch.nn.functional.silu(embin_ + trow).to(wn.dtype)
-        h = sc.init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
-        for i in range(len(wn.dims.block_channels)):
-            h = sc.stage_apply(wn, i, h, emb)
-        return sc.final_apply(wn, h, emb).float()
-
     got = kernel(w, x, *ops)
     ref = plain(w, x, *ops)
-    with mock.patch.object(cs, "_net_plain", chain_net):
+    with mock.patch.object(cs, "_net_plain", _chain_net):
         chain = plain(w, x, *ops)
     torch.cuda.synchronize()
     err, chain_err = ((t - ref).abs().max().item() for t in (got, chain))
     assert err <= SPLIT_VS_CUDA_CORES * chain_err, (err, chain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L", [4, 16])
+def test_float32_dpmpp_sampler_within_the_cuda_core_control_on_card(cuda, nets, L):
+    """chip_smoke.py's CUDA-core control of the float32 dpmpp_sampler_kernel
+    (the exact bf16 split on the tensor cores) at a small BG over a whole
+    6-step trajectory: its error against dpmpp_sampler_plain within
+    SPLIT_VS_CUDA_CORES of the error of the same plain steps whose network
+    evaluations run the float32 stage chain (the CUDA cores)."""
+    from unittest import mock
+
+    math, dims = nets["den"][L]
+    w = sc.PackedNet(math, dims, torch.float32, cuda)
+    g = torch.Generator(device=cuda).manual_seed(15)
+    BG, N, ed = 257, 6, ElucidatedDiffusion(n_dims=L)
+    z_pc = torch.randn(BG, 3, dims.cond_dim, generator=g, device=cuda)
+    x_T = 80.0 * torch.randn(BG, L, generator=g, device=cuda)
+    dp = cs.dpmpp_tables(w, ed, compute_input_emb(w.aux, z_pc), N)
+    before = cs.DPMPP_KERNEL.launches
+    got = cs.dpmpp_sampler_apply(w, x_T, *dp)
+    assert cs.DPMPP_KERNEL.launches == before + 1
+    ref = cs.dpmpp_sampler_plain(w, x_T, *dp, False)
+    with mock.patch.object(cs, "_net_plain", _chain_net):
+        chain = cs.dpmpp_sampler_plain(w, x_T, *dp, False)
+    torch.cuda.synchronize()
+    err, chain_err = ((t - ref).abs().max().item() for t in (got, chain))
+    assert err <= SPLIT_VS_CUDA_CORES * chain_err, (err, chain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BG", [4096, 1021])
+def test_bf16_final_kernel_matches_plain_at_the_decoder_widths_on_card(cuda, nets, BG):
+    """final_kernel<bf16> (its two k3 convs on the tensor cores, the head on
+    the CUDA cores) against final_plain at the VAE decoder's widths (L = 16,
+    C = 256), at a decode's rows and a ragged BG, to TOLS[bf16]."""
+    d = nets["dec_dims"]
+    w = sc.PackedNet(nets["dec_math"], d, torch.bfloat16, cuda)
+    g = torch.Generator(device=cuda).manual_seed(16)
+    x = torch.randn(BG, d.seq_len * d.block_channels[-1], generator=g,
+                    device=cuda).to(torch.bfloat16)
+    emb = torch.randn(BG, d.cond_channels * d.emb_dim, generator=g,
+                      device=cuda).to(torch.bfloat16)
+    before = sc.FINAL_KERNEL.launches
+    got = sc.final_apply(w, x, emb)
+    assert sc.FINAL_KERNEL.launches == before + 1
+    torch.cuda.synchronize()
+    ref = sc.final_plain(w, x, emb)
+    assert got.shape == (BG, d.seq_len) and got.dtype == torch.bfloat16
+    torch.testing.assert_close(got.float(), ref.float(), **_rel(TOLS[torch.bfloat16], ref))
 
 
 def _seeded_ldm(device, seed):
