@@ -6,7 +6,10 @@ shared library of its own with a plain C interface, loaded with ``ctypes``
 parallel, one ``nvcc`` each, all started together. The libraries land in
 ``graspldm_tpu_torch/build/`` (git-ignored), each named by a hash of its
 source, the shared headers and the flags, so an edited source is rebuilt
-and an unchanged one is reused. Nothing here runs at import time.
+and an unchanged one is reused. A process that builds says so on standard
+error: how many libraries it built, in how many seconds, and how many it
+reused (a build adds about a minute to the first call). Nothing here runs
+at import time.
 
 The wrappers' shared pieces live here too: :class:`KernelCounter` (each
 wrapper adds one per launch), :func:`on_cuda` (which side of the wrapper a
@@ -21,7 +24,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import tempfile
+import time
 import types
 from pathlib import Path
 
@@ -157,6 +162,7 @@ def load_library() -> types.SimpleNamespace:
     Returns a namespace of the C entries of all of them (``gl_*``)."""
     todo = [src for src in _SOURCES if not library_path(src).exists()]
     if todo:
+        t0 = time.perf_counter()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         nvcc = nvcc_path()
         jobs = []
@@ -178,6 +184,9 @@ def load_library() -> types.SimpleNamespace:
         (BUILD_DIR / "nvcc.log").write_text("\n".join(log))
         if errors:
             raise RuntimeError("\n".join(errors))
+        print(f"graspldm_tpu_torch: built {len(todo)} kernel libraries with nvcc in "
+              f"{time.perf_counter() - t0:.1f} s, reused {len(_SOURCES) - len(todo)}",
+              file=sys.stderr, flush=True)
     fns = {}
     for src, entries in _SOURCES.items():
         lib = ctypes.CDLL(str(library_path(src)))

@@ -54,6 +54,7 @@ from ..models.stacked_denoiser import (
     pack_math_weights,
 )
 from ..utils.normalization import NormalizationMeta, unnormalize_grasps
+from ..utils.profiling import span
 from ..utils.rotations import tmrp_to_H
 
 __all__ = [
@@ -243,26 +244,27 @@ def decode_and_postprocess(
     """Decode latents to world-frame grasps: ``grasps [B, G, 4, 4]``,
     ``grasp_tmrp [B, G, 6]``, ``confidence [B, G]``[, ``qualities``].
     Through the kernels when ``weights.decoder`` is packed, else through
-    ``vae.decode``."""
-    if weights.decoder is not None:
-        out = decoder_fast_apply(weights.decoder, z_h, z_pc_rep)
-    elif vae is None:
-        raise ValueError("the plain-module decoder route needs the vae")
-    else:
-        out = vae.decode(z_h, z_pc_rep)
-    tmrp_n, cls_logits = out[0], out[1]
-    B = z_pc_rep.shape[0] // num_grasps
-    tmrp = tmrp_n.reshape(B, num_grasps, 6)
-    if meta is not None:
-        tmrp = unnormalize_grasps(tmrp, meta)
-    result = {
-        "grasps": tmrp_to_H(tmrp),
-        "grasp_tmrp": tmrp,
-        "confidence": torch.sigmoid(cls_logits.reshape(B, num_grasps)),
-    }
-    if len(out) > 2:
-        result["qualities"] = out[2].reshape(B, num_grasps, -1)
-    return result
+    ``vae.decode``. Recorded as the ``graspldm.decode`` span."""
+    with span("decode"):
+        if weights.decoder is not None:
+            out = decoder_fast_apply(weights.decoder, z_h, z_pc_rep)
+        elif vae is None:
+            raise ValueError("the plain-module decoder route needs the vae")
+        else:
+            out = vae.decode(z_h, z_pc_rep)
+        tmrp_n, cls_logits = out[0], out[1]
+        B = z_pc_rep.shape[0] // num_grasps
+        tmrp = tmrp_n.reshape(B, num_grasps, 6)
+        if meta is not None:
+            tmrp = unnormalize_grasps(tmrp, meta)
+        result = {
+            "grasps": tmrp_to_H(tmrp),
+            "grasp_tmrp": tmrp,
+            "confidence": torch.sigmoid(cls_logits.reshape(B, num_grasps)),
+        }
+        if len(out) > 2:
+            result["qualities"] = out[2].reshape(B, num_grasps, -1)
+        return result
 
 
 def trajectory_decode_indices(n_states: int) -> torch.Tensor:
@@ -298,14 +300,16 @@ def vae_generate(
             package's ``"auto"``, ``"pallas"``, ``"flax"``): see
             :func:`resolve_decoder_impl`.
     """
-    dec_route = resolve_decoder_impl(vae, decoder_impl)
-    weights = _weights_for(weights, vae, None, pc.device, "module", dec_route)
-    z_pc = vae.encode_pc(pc)
-    z_pc_rep = z_pc.repeat_interleave(num_grasps, dim=0)
-    if z_h is None:
-        z_h = torch.randn((pc.shape[0] * num_grasps, vae.grasp_latent_size),
-                          generator=generator, device=pc.device)
-    return decode_and_postprocess(weights, z_h, z_pc_rep, num_grasps, meta, vae)
+    with span("vae_generate"):
+        dec_route = resolve_decoder_impl(vae, decoder_impl)
+        weights = _weights_for(weights, vae, None, pc.device, "module", dec_route)
+        with span("encode"):
+            z_pc = vae.encode_pc(pc)
+        z_pc_rep = z_pc.repeat_interleave(num_grasps, dim=0)
+        if z_h is None:
+            z_h = torch.randn((pc.shape[0] * num_grasps, vae.grasp_latent_size),
+                              generator=generator, device=pc.device)
+        return decode_and_postprocess(weights, z_h, z_pc_rep, num_grasps, meta, vae)
 
 
 @torch.no_grad()
@@ -367,54 +371,58 @@ def ldm_generate(
     ``full_kernel`` launch. The draws from ``generator`` are the same on
     every route.
     """
-    edm = isinstance(diffusion, ElucidatedDiffusion)
-    if not edm and sampler not in ("ddim", "ddpm"):
-        raise ValueError(f"sampler {sampler!r} needs an ElucidatedDiffusion; "
-                         "GaussianDiffusion1D takes 'ddim' or 'ddpm'")
-    cond_kwargs = {k: torch.as_tensor(v, device=pc.device)
-                   for k, v in (("cls_cond", cls_cond), ("region_points", region_points))
-                   if v is not None}
-    _check_condition(ddm, cond_kwargs)
-    den_route = resolve_denoiser_impl(ddm, denoiser_impl)
-    dec_route = resolve_decoder_impl(vae, decoder_impl)
-    if cfg_scale is not None and not cond_kwargs:
-        raise ValueError("cfg_scale requires a conditioned denoiser (cls_cond or region_points)")
-    weights = _weights_for(weights, vae, ddm, pc.device, den_route, dec_route)
-    z_pc = vae.encode_pc(pc)
-    z_pc_rep = z_pc.repeat_interleave(num_grasps, dim=0)
-    BG = z_pc_rep.shape[0]
-    if x_T is None:
-        x_T = torch.randn((BG, ddm.latent_in_features), generator=generator, device=pc.device)
-        if edm:
-            x_T = diffusion.sample_schedule(num_inference_steps)[0].item() * x_T
-    if guidance_fn is None and guidance_scale is not None:
-        guidance_fn = make_success_guidance(vae, z_pc_rep)
-    guided = guidance_fn is not None or cfg_scale is not None
-    if den_route == "module":
-        denoise = _module_denoise_fn(ddm, z_pc_rep, cond_kwargs, cfg_scale)
-    else:
-        input_emb = compute_input_emb(weights.denoiser.aux, z_pc_rep)
-        extra = compute_extra_emb(weights.denoiser.aux, **cond_kwargs)
-        denoise = _guided_denoise_fn(weights.denoiser, input_emb, extra, cfg_scale)
-    if den_route == "module" or guided:
-        res = _loop_sample(denoise, diffusion, x_T, noise, generator, num_inference_steps,
-                           sampler, return_trajectory, guidance_fn,
-                           1.0 if guidance_scale is None else float(guidance_scale))
-    else:
-        if extra is not None:
-            input_emb = input_emb + extra[:, None, :]
-        res = _fused_sample(weights.denoiser, diffusion, input_emb, x_T, noise, generator,
-                            num_inference_steps, sampler, return_trajectory)
-    x0, traj = res if return_trajectory else (res, None)
-    result = decode_and_postprocess(weights, x0[:, 0, :], z_pc_rep, num_grasps, meta, vae)
-    if return_trajectory:
-        result["latent_trajectory"] = traj
-        result["all_diffusion_grasps"] = torch.stack([
-            decode_and_postprocess(weights, traj[i, :, 0, :], z_pc_rep, num_grasps, meta,
-                                   vae)["grasps"]
-            for i in trajectory_decode_indices(traj.shape[0]).tolist()
-        ])
-    return result
+    with span("ldm_generate"):
+        edm = isinstance(diffusion, ElucidatedDiffusion)
+        if not edm and sampler not in ("ddim", "ddpm"):
+            raise ValueError(f"sampler {sampler!r} needs an ElucidatedDiffusion; "
+                             "GaussianDiffusion1D takes 'ddim' or 'ddpm'")
+        cond_kwargs = {k: torch.as_tensor(v, device=pc.device)
+                       for k, v in (("cls_cond", cls_cond), ("region_points", region_points))
+                       if v is not None}
+        _check_condition(ddm, cond_kwargs)
+        den_route = resolve_denoiser_impl(ddm, denoiser_impl)
+        dec_route = resolve_decoder_impl(vae, decoder_impl)
+        if cfg_scale is not None and not cond_kwargs:
+            raise ValueError("cfg_scale requires a conditioned denoiser "
+                             "(cls_cond or region_points)")
+        weights = _weights_for(weights, vae, ddm, pc.device, den_route, dec_route)
+        with span("encode"):
+            z_pc = vae.encode_pc(pc)
+        z_pc_rep = z_pc.repeat_interleave(num_grasps, dim=0)
+        BG = z_pc_rep.shape[0]
+        if x_T is None:
+            x_T = torch.randn((BG, ddm.latent_in_features), generator=generator, device=pc.device)
+            if edm:
+                x_T = diffusion.sample_schedule(num_inference_steps)[0].item() * x_T
+        if guidance_fn is None and guidance_scale is not None:
+            guidance_fn = make_success_guidance(vae, z_pc_rep)
+        guided = guidance_fn is not None or cfg_scale is not None
+        if den_route == "module":
+            denoise = _module_denoise_fn(ddm, z_pc_rep, cond_kwargs, cfg_scale)
+        else:
+            input_emb = compute_input_emb(weights.denoiser.aux, z_pc_rep)
+            extra = compute_extra_emb(weights.denoiser.aux, **cond_kwargs)
+            denoise = _guided_denoise_fn(weights.denoiser, input_emb, extra, cfg_scale)
+        with span("sample"):
+            if den_route == "module" or guided:
+                res = _loop_sample(denoise, diffusion, x_T, noise, generator, num_inference_steps,
+                                   sampler, return_trajectory, guidance_fn,
+                                   1.0 if guidance_scale is None else float(guidance_scale))
+            else:
+                if extra is not None:
+                    input_emb = input_emb + extra[:, None, :]
+                res = _fused_sample(weights.denoiser, diffusion, input_emb, x_T, noise, generator,
+                                    num_inference_steps, sampler, return_trajectory)
+        x0, traj = res if return_trajectory else (res, None)
+        result = decode_and_postprocess(weights, x0[:, 0, :], z_pc_rep, num_grasps, meta, vae)
+        if return_trajectory:
+            result["latent_trajectory"] = traj
+            result["all_diffusion_grasps"] = torch.stack([
+                decode_and_postprocess(weights, traj[i, :, 0, :], z_pc_rep, num_grasps, meta,
+                                       vae)["grasps"]
+                for i in trajectory_decode_indices(traj.shape[0]).tolist()
+            ])
+        return result
 
 
 def _fused_sample(w: PackedNet, diffusion, input_emb, x_T, noise, generator,
