@@ -15,7 +15,11 @@ any phase fails (every phase runs; the failures are listed at the end):
    float32 (TF32 off) and bfloat16, and time both with CUDA events: the
    stage/final/DDIM kernels at the fpc flagship's shapes (BG = 4096 rows;
    ``final_kernel`` also at a ragged BG = 1021; the decode's core is also
-   timed as one ``full_kernel`` launch beside its route, the chain of 5),
+   timed as one ``full_kernel`` launch beside its route, the chain of 5;
+   the float32 ``stage_kernel`` and ``final_kernel``, on the tensor cores
+   through the exact bf16 split, are held to the split controls launch by
+   launch and timed beside their CUDA-core control, and their chain is held
+   to ``full_kernel``'s output within ``SPLIT_VS_CHAIN``),
    ``dpmpp_sampler_kernel`` (32 steps) and ``churn_sampler_kernel`` (100
    steps) at fpc, and all three sampler kernels at the ppc denoiser's
    L = 16 (checked at BG = 1021 over 8 steps, then checked and timed at
@@ -240,15 +244,19 @@ TOL_BF16_EDM_STEP_MEAN = 2.0 ** -10.5  # mean error
 # below the spread; as above, the script fails unless the spread lies
 # above it.
 TOL_BF16_STEP_MEAN = {"ddim": 2.0 ** -19, "dpmpp": 2.0 ** -19, "churn": 2.0 ** -22}
-# full_kernel<float> runs its products on the tensor cores through the exact
-# bf16 split (csrc/tc_blocks.cuh). Its error against full_plain must stay
-# within this many times the error of the float32 stage chain (the same
-# function on the CUDA cores: stage_kernel<float> x 4 + final_kernel<float>)
-# on the same operands, the CUDA-core control; and a plain version with its
-# weights and stored activations rounded to bf16 must land above TOL_FP32
-# against full_plain, or TOL_FP32 would not tell a bf16 network from a
-# float32 one.
+# Every float32 kernel on the tensor cores runs its products through the
+# exact bf16 split (csrc/tc_blocks.cuh). Its error against its plain version
+# must stay within this many times the error of the float32 stage chain's
+# CUDA-core control (the same function on the CUDA cores: stage_kernel and
+# final_kernel with cuda_cores=True, which no main path launches) on the
+# same operands; and a plain version with its weights and stored
+# activations rounded to bf16 must land above TOL_FP32 against it, or
+# TOL_FP32 would not tell a bf16 network from a float32 one.
 SPLIT_VS_CUDA_CORES = 4.0
+# The float32 decoder chain on the split and full_kernel<float> run the same
+# body and products on the same operands: within this much of max(1,
+# max|chain|) of each other (tests/test_torch_port_kernels.py's limit).
+SPLIT_VS_CHAIN = 5e-6
 # float32 end to end, card vs CPU: PVCNN (cuDNN vs CPU convolutions) and
 # the sampler's steps reorder sums; grasp entries are O(1).
 TOL_E2E = 1e-3
@@ -390,7 +398,8 @@ def counters():
     from graspldm_tpu_torch.ops import cuda_fps
 
     tools = mb_tools()
-    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL, sc.HYBRID_STAGE_KERNEL,
+    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.STAGE_KERNEL_CUDA_CORES,
+            sc.FINAL_KERNEL_CUDA_CORES, sc.FULL_KERNEL, sc.HYBRID_STAGE_KERNEL,
             sc.HYBRID_FINAL_KERNEL, cs.SAMPLER_KERNEL,
             cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
             cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL, tools["mm"].MM_CHAIN_KERNEL,
@@ -518,15 +527,23 @@ def full_macs(d) -> int:
     return sum(stage_macs(d, i) for i in range(len(d.block_channels))) + final_macs(d)
 
 
+def stage_tc_macs(d, i: int) -> int:
+    """The multiply-adds of ``stage_macs`` that the tensor-core body runs on
+    the tensor cores (the k3 convs and projection, wqkv and wo); the FiLM
+    MLPs, the L x L scores and values stay on the CUDA cores."""
+    L, C, Co = d.seq_len, d.cins[i], d.block_channels[i]
+    return 4 * L * 3 * C * C + L * C * 3 * HD + L * HD * C + L * 3 * C * Co
+
+
+def final_tc_macs(d) -> int:
+    """The final block's two k3 convs (the head stays on the CUDA cores)."""
+    return 2 * d.seq_len * 3 * d.block_channels[-1] ** 2
+
+
 def tc_macs(d) -> int:
     """The multiply-adds of ``full_macs`` that the tensor-core network body
-    runs on the tensor cores (the k3 convs and projections, wqkv and wo);
-    the FiLM MLPs, the L x L scores and values and the head stay on the CUDA
-    cores."""
-    L, n = d.seq_len, 0
-    for C, Co in zip(d.cins, d.block_channels):
-        n += 4 * L * 3 * C * C + L * C * 3 * HD + L * HD * C + L * 3 * C * Co
-    return n + 2 * L * 3 * d.block_channels[-1] ** 2
+    runs on the tensor cores."""
+    return sum(stage_tc_macs(d, i) for i in range(len(d.block_channels))) + final_tc_macs(d)
 
 
 def net_bound(w, flops: float, tc: float, nbytes_: int) -> dict:
@@ -627,47 +644,74 @@ def kernel_phase(run: Run, vae, ddm, diffusion, dev) -> None:
         emb = compute_emb_s_stacked(w.aux, None, z_pc).to(dt)
         x_in = dec.in_layer(z_h)  # [BG, 16]
         x = init_conv(w, x_in).reshape(BG, -1).to(dt)
-        errs, k_ms, p_ms = [], 0.0, 0.0
-        stages, flops, moved = [], 0.0, 0
+        fp32 = tag == "fp32"
+        # the float32 pair on the split is held to its controls (split_controls):
+        # the CUDA-core control's error and a bf16 network's, on its operands
+        w_bf16 = PackedNet(dec_math, ddims, torch.bfloat16, dev) if fp32 else None
+
+        def controls(name, ref_name, got, ref, ctl, plain_bf16) -> dict:
+            return control_verdicts(run, name, ref_name, "the fp32 chain's CUDA-core control",
+                                    got, ref, ctl, plain_bf16().float())
+
+        errs, k_ms, p_ms, c_ms, held = [], 0.0, 0.0, 0.0, []
+        stages, flops, tc_flops, moved = [], 0.0, 0.0, 0
         for i in range(len(ddims.block_channels)):
             ref = stage_plain(w, i, x, emb)
             got = stage_apply(w, i, x, emb)
             torch.cuda.synchronize()
             C, Co = ddims.cins[i], ddims.block_channels[i]
-            errs.append(run.compare(f"stage_kernel L=16 {C}->{Co}", got, ref,
-                                    TOL_FP32 if tag == "fp32" else TOL_BF16))
+            name = f"stage_kernel L=16 {C}->{Co}"
+            errs.append(run.compare(name, got, ref, TOL_FP32 if fp32 else TOL_BF16))
+            if fp32:
+                held.append(dict(stage=i, **controls(
+                    name, "stage_plain", got, ref, stage_apply(w, i, x, emb, cuda_cores=True),
+                    lambda: stage_plain(w_bf16, i, x.bfloat16(), emb.bfloat16()))))
             stages.append((i, x))
             flops += 2.0 * stage_macs(ddims, i) * BG
+            tc_flops += 2.0 * stage_tc_macs(ddims, i) * BG
             moved += nbytes(x, emb, ref, *(t for k, t in w.w.items() if k.startswith(f"b{i}")))
             x = ref
         for i, xi in stages:
             k_ms += cuda_ms(lambda: stage_apply(w, i, xi, emb), 10)
             p_ms += cuda_ms(lambda: stage_plain(w, i, xi, emb), 3)
-        run.record("stage_kernel", "fpc", 16, BG, None, tag, what="decoder, 4 launches",
-                   err=max(errs), ms=k_ms, plain_ms=p_ms, **bound(flops, moved, tag))
+            if fp32:
+                c_ms += cuda_ms(lambda: stage_apply(w, i, xi, emb, cuda_cores=True), 10)
+        r = run.record("stage_kernel", "fpc", 16, BG, None, tag, what="decoder, 4 launches",
+                       err=max(errs), ms=k_ms, plain_ms=p_ms,
+                       **net_bound(w, flops, tc_flops, moved))
+        if fp32:
+            r.update(cuda_cores_ms=c_ms, split_controls=held)
         log(f"  stage_kernel, 4 launches of one decode: kernel {k_ms:.3f} ms, "
-            f"plain {p_ms:.3f} ms")
+            f"plain {p_ms:.3f} ms" + (f", CUDA-core control {c_ms:.3f} ms" if fp32 else ""))
 
-        # final_kernel (bf16: its two convs on the tensor cores) at the decode's
-        # rows and at a ragged BG
+        # final_kernel (its two convs on the tensor cores) at the decode's rows
+        # and at a ragged BG
         checked = []
         for bg in (BG, RAGGED_BG):
             xb, eb = x[:bg].contiguous(), emb[:bg].contiguous()
-            got = final_apply(w, xb, eb)
+            got, ref = final_apply(w, xb, eb), final_plain(w, xb, eb)
             torch.cuda.synchronize()
+            name = f"final_kernel L=16 256->1 BG={bg}"
             checked.append(dict(BG=bg, max_abs_err=run.compare(
-                f"final_kernel L=16 256->1 BG={bg}", got, final_plain(w, xb, eb),
-                TOL_FP32 if tag == "fp32" else TOL_BF16)))
+                name, got, ref, TOL_FP32 if fp32 else TOL_BF16)))
+            if fp32:
+                checked[-1]["split_controls"] = controls(
+                    name, "final_plain", got, ref, final_apply(w, xb, eb, cuda_cores=True),
+                    lambda: final_plain(w_bf16, xb.bfloat16(), eb.bfloat16()))
         ref = final_plain(w, x, emb)
         k_ms = cuda_ms(lambda: final_apply(w, x, emb), 10)
         p_ms = cuda_ms(lambda: final_plain(w, x, emb), 3)
         moved = nbytes(x, emb, ref, *(t for k, t in w.w.items() if k.startswith("final")))
-        run.record("final_kernel", "fpc", 16, BG, None, tag, what="decoder",
-                   err=checked[0]["max_abs_err"], err_checked_at=checked, ms=k_ms,
-                   plain_ms=p_ms, **bound(2.0 * final_macs(ddims) * BG, moved, tag))
-        log(f"  final_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms")
-        if tag == "bf16":
-            decode_core(run, w, stages[0][1], emb)
+        r = run.record("final_kernel", "fpc", 16, BG, None, tag, what="decoder",
+                       err=checked[0]["max_abs_err"], err_checked_at=checked, ms=k_ms,
+                       plain_ms=p_ms, **net_bound(w, 2.0 * final_macs(ddims) * BG,
+                                                  2.0 * final_tc_macs(ddims) * BG, moved))
+        line = f"  final_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms"
+        if fp32:
+            r["cuda_cores_ms"] = cuda_ms(lambda: final_apply(w, x, emb, cuda_cores=True), 10)
+            line += f", CUDA-core control {r['cuda_cores_ms']:.3f} ms"
+        log(line)
+        decode_core(run, w, stages[0][1], emb)
 
         wd = PackedNet(den_math, den_dims, dt, dev)
         input_emb = compute_input_emb(wd.aux, z_pc)
@@ -699,18 +743,42 @@ def kernel_phase(run: Run, vae, ddm, diffusion, dev) -> None:
 
 def decode_core(run: Run, w, x, emb) -> None:
     """The decode's core after the init conv (``x``: its output, ``emb``
-    the FiLM input, bf16 at BG rows) two ways, timed only: the route the
-    decoder takes, 4 ``stage_kernel`` launches and ``final_kernel``, and
-    one ``full_kernel`` launch (the fused route, not taken by the decoder)."""
+    the FiLM input, at BG rows) two ways, timed: the route the decoder
+    takes, 4 ``stage_kernel`` launches and ``final_kernel``, and one
+    ``full_kernel`` launch (the fused route, not taken by the decoder); in
+    float32 also the chain's CUDA-core control, and the chain and
+    ``full_kernel`` (the same body on the split) held within
+    ``SPLIT_VS_CHAIN`` of each other, whether bitwise equal logged."""
     from graspldm_tpu_torch.models.stacked_cuda import full_apply
 
+    tag = tag_of(w.dtype)
+    bg = x.shape[0]
+    res = dict(BG=bg)
+    if tag == "fp32":
+        chain, full = stage_chain(w, x, emb), full_apply(w, x, emb)
+        torch.cuda.synchronize()
+        top = max(1.0, chain.abs().max().item())
+        apart = (chain - full).abs().max().item() / top
+        bitwise = bool(torch.equal(chain, full))
+        ok = apart <= SPLIT_VS_CHAIN
+        log(f"  decode core fp32 BG={bg}: the split chain and full_kernel {apart:.3e} of "
+            f"max(1, max|chain|) apart (limit {SPLIT_VS_CHAIN:g}) -> {'ok' if ok else 'FAIL'}; "
+            f"bitwise equal: {bitwise}")
+        if not ok:
+            run.failures.append(f"decode core fp32: split chain and full_kernel {apart:.3e} apart")
+        res.update(rel_apart_from_full_kernel=apart, bitwise_equal_full_kernel=bitwise,
+                   cuda_cores_chain_ms=cuda_ms(lambda: stage_chain(w, x, emb, cuda_cores=True),
+                                               10))
     c_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
     f_ms = cuda_ms(lambda: full_apply(w, x, emb), 10)
-    b = full_bound(w, x.shape[0], nbytes(x, emb, w.math_flat, w.layout) + x.shape[0] * 16 * 2)
-    log(f"  decode core bf16 BG={x.shape[0]}: the chain of 5 launches (the decoder's route) "
-        f"{c_ms:.3f} ms, full_kernel {f_ms:.3f} ms (timing only); bound {b['bound_ms']:.4f} ms")
-    run.records[("final_kernel", "fpc")]["bf16"]["decode_core"] = dict(
-        BG=x.shape[0], chain_ms=c_ms, full_kernel_ms=f_ms, bound_ms=b["bound_ms"])
+    b = full_bound(w, bg, nbytes(x, emb, w.math_flat, w.layout) + bg * 16 * w.flat.element_size())
+    log(f"  decode core {tag} BG={bg}: the chain of 5 launches (the decoder's route) "
+        f"{c_ms:.3f} ms, full_kernel {f_ms:.3f} ms"
+        + (f", the chain's CUDA-core control {res['cuda_cores_chain_ms']:.3f} ms"
+           if tag == "fp32" else "")
+        + f"; bound {b['bound_ms']:.4f} ms ({bound_way(b)})")
+    res.update(chain_ms=c_ms, full_kernel_ms=f_ms, bound_ms=b["bound_ms"])
+    run.records[("final_kernel", "fpc")][tag]["decode_core"] = res
 
 
 def control_phase(run: Run) -> None:
@@ -1057,14 +1125,14 @@ def step_kernel_phase(run: Run, config: str, ddm, ed, sched, dev, bg_full: int) 
 
 
 def chain_net(wn, x_in, embin, trow):
-    """``cuda_sampler._net_plain`` with the float32 stage chain for its
-    network (the CUDA cores); the init conv and the FiLM input as the plain
+    """``cuda_sampler._net_plain`` with the float32 stage chain's CUDA-core
+    control for its network; the init conv and the FiLM input as the plain
     version computes them."""
     from graspldm_tpu_torch.models.stacked_cuda import init_conv
 
     emb = torch.nn.functional.silu(embin + trow).to(wn.dtype)
     h = init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
-    return stage_chain(wn, h, emb).float()
+    return stage_chain(wn, h, emb, cuda_cores=True).float()
 
 
 def step_controls(run: Run, label: str, kind: str, w, math_w, traj, sched, ed, input_emb,
@@ -1156,14 +1224,16 @@ def full_operands(w, bg: int, gen, dev):
     return init_conv(w, x_T).reshape(bg, -1).to(w.dtype).contiguous(), emb
 
 
-def stage_chain(w, x, emb):
+def stage_chain(w, x, emb, cuda_cores: bool = False):
     """The 5-launch lowering of the same function: every ``stage_kernel``,
-    then ``final_kernel``."""
+    then ``final_kernel``; on the tensor cores (the decoder's route), or
+    with ``cuda_cores`` the float32 CUDA-core control that every float32
+    kernel on the split is held against."""
     from graspldm_tpu_torch.models.stacked_cuda import final_apply, stage_apply
 
     for i in range(len(w.dims.block_channels)):
-        x = stage_apply(w, i, x, emb)
-    return final_apply(w, x, emb)
+        x = stage_apply(w, i, x, emb, cuda_cores=cuda_cores)
+    return final_apply(w, x, emb, cuda_cores=cuda_cores)
 
 
 def full_kernel_phase(run: Run, nets: list, dev) -> None:
@@ -1197,7 +1267,7 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
                 x, emb = full_operands(w, bg, gen, dev)
                 ref = full_plain(w, x, emb)
                 got = full_apply(w, x, emb)
-                chain = stage_chain(w, x, emb)
+                chain = stage_chain(w, x, emb, cuda_cores=tag == "fp32")
                 torch.cuda.synchronize()
                 err = run.compare(f"full_kernel {label} BG={bg} vs full_plain", got, ref, tol)
                 run.compare(f"full_kernel {label} BG={bg} vs the stage chain", got, chain, tol)
@@ -1214,7 +1284,7 @@ def full_kernel_phase(run: Run, nets: list, dev) -> None:
                     continue
                 k_ms = cuda_ms(lambda: full_apply(w, x, emb), 10)
                 p_ms = cuda_ms(lambda: full_plain(w, x, emb), 3)
-                c_ms = cuda_ms(lambda: stage_chain(w, x, emb), 10)
+                c_ms = cuda_ms(lambda: stage_chain(w, x, emb, cuda_cores=tag == "fp32"), 10)
                 b = full_bound(w, bg, nbytes(x, emb, ref, w.math_flat, w.layout))
                 log(f"  full_kernel: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, chain of 5 "
                     f"launches {c_ms:.3f} ms; bound {b['bound_ms']:.4f} ms ({bound_way(b)})")
@@ -2446,18 +2516,20 @@ TENSOR_CORE_KERNELS = {("mm_chain_kernel", "f32"), ("mm_chain_kernel", "bf16"),
                        ("ddim_sampler_kernel", "bf16"), ("ddim_sampler_kernel", "fp32"),
                        ("ddim_step_kernel", "fp32"), ("full_kernel", "bf16"),
                        ("full_kernel", "fp32"), ("stage_kernel", "bf16"),
-                       ("final_kernel", "bf16"), ("churn_sampler_kernel", "fp32"),
+                       ("stage_kernel", "fp32"), ("final_kernel", "bf16"),
+                       ("final_kernel", "fp32"), ("churn_sampler_kernel", "fp32"),
                        ("churn_step_kernel", "fp32"), ("dpmpp_sampler_kernel", "fp32")}
 
 
 def sass_check(run: Run) -> None:
     """``cuobjdump -sass`` of every built library: the kernels of
     TENSOR_CORE_KERNELS issue HMMA, every other kernel (the float32
-    ``stage_kernel`` and ``final_kernel``, ``dpmpp_step_kernel``, the bf16
-    ``ddim_step_kernel``, ``dpmpp_sampler_kernel`` and churn kernels among
-    them) none, and no kernel a TF32 HMMA.
-    Instances are named by their template argument (a micro-benchmark
-    kernel's form, or bf16 / fp32)."""
+    ``stage_kernel`` and ``final_kernel``'s CUDA-core control,
+    ``dpmpp_step_kernel``, the bf16 ``ddim_step_kernel``,
+    ``dpmpp_sampler_kernel`` and churn kernels among them) none, and no
+    kernel a TF32 HMMA. Instances are named by their template arguments (a
+    micro-benchmark kernel's form, or bf16 / fp32, and "CUDA cores" where a
+    products argument is false)."""
     from graspldm_tpu_torch.cuda_build import library_path, nvcc_path
 
     cuobjdump = os.path.join(os.path.dirname(nvcc_path()), "cuobjdump")
@@ -2469,7 +2541,7 @@ def sass_check(run: Run) -> None:
         out = subprocess.run([cuobjdump, "-sass", str(library_path(src))], capture_output=True,
                              text=True, check=True, timeout=300).stdout
         for chunk in out.split("Function : ")[1:]:
-            m = re.search(rf"({names})(?:I(?:Li(\d+)E|(13__nv_bfloat16)E|(f)E))?",
+            m = re.search(rf"({names})(?:I(?:Li(\d+)E|(?:(13__nv_bfloat16)|(f))(Lb[01]E)?E))?",
                           chunk.split("\n", 1)[0])
             if not m:
                 continue
@@ -2478,6 +2550,7 @@ def sass_check(run: Run) -> None:
                 inst = forms[name][int(arg)] if name in forms else arg
             else:
                 inst = "bf16" if m.group(3) else "fp32" if m.group(4) else ""
+                inst += " CUDA cores" if m.group(5) == "Lb0E" else ""
             lines = [ln for ln in chunk.splitlines() if "HMMA" in ln]
             found[(name, inst)] = (len(lines), sum("TF32" in ln for ln in lines))
     for (name, inst), (n, tf32) in sorted(found.items()):
@@ -2619,6 +2692,7 @@ def kernels_line(run: Run) -> dict:
             **{f"{k}{sfx}": t[k] for sfx, t in (("", bf), ("_fp32", fp))
                for k in ("chain_ms", "timed_at", "unsplit_chain_ms", "attention_ms",
                          "chain_vs_unsplit", "reps1_ms", "vs_dpmpp_per_step", "packing",
+                         "cuda_cores_ms",
                          "decode_core",
                          "split_controls", "trajectory_controls", "chain_vs_whole_ddpm")
                if k in t},

@@ -15,10 +15,10 @@
 // trajectory: no activation ever goes to device memory between ops or
 // steps), and reads each weight once per R rows.
 //
-// ddim_sampler_kernel (both dtypes), the bf16 stage_kernel and the bf16
-// final_kernel run their convs, projections and the attention's wqkv / wo
-// products on the tensor cores (mma.sync.m16n8k16, float32 accumulators,
-// 512 threads; tc_blocks.cuh):
+// ddim_sampler_kernel, stage_kernel and final_kernel (all in both dtypes)
+// run their convs, projections and the attention's wqkv / wo products on
+// the tensor cores (mma.sync.m16n8k16, float32 accumulators, 512 threads;
+// tc_blocks.cuh):
 // the block's R*L tokens are the product's M, A fragments come from the
 // activations in shared memory through ldmatrix, B from a fragment-ordered
 // bf16 copy of the weights made at packing time, found through the
@@ -63,12 +63,39 @@
 // final_plan with staging room in OUT, 6 rows (M = 96, 3 units a warp;
 // 683 blocks in 6 waves of 132 where 4 rows take 1024 in 8), 0.803 /
 // 0.258 ms; final_plan's 8 rows with no room, A read value by value,
-// 2.118 / 0.520.
-// The float32 final_kernel and stage_kernel keep the CUDA-core body
-// (resnet1d_blocks.cuh: one vector load of a weight row reused over a
-// 4-token register tile, fp32 FMAs; final_kernel<float> at 256 threads and
-// final_plan's rows, as before); the float32 stage chain is the CUDA-core
-// control of the float32 tensor-core kernels' exact bf16 split.
+// 2.118 / 0.520 (2.124 / 0.514 again beside the float32 pair below).
+// stage_kernel<float, true> and final_kernel<float, true>, every float32
+// decode's 4 + 1 launches, run the same products through the exact bf16
+// split (tc_blocks.cuh), the function still the float32 one. What bounds
+// them is operations: the decoder's core is 29.77 MFLOP a row at L = 16,
+// 2.96 ms at a fpc.vae call's 16,384 rows at the split's 164.8 TFLOP/s.
+// At L = 16 the stage plans hold 5, 5, 4 and 3 rows (M = 80, 80, 64 and
+// 48 tokens; at L = 4 16, 16, 16 and 12), rows_per_block's: cut to whole
+// 32-token warp units (tc_rows_per_block: 4, 4, 4 and 2), a decode's 4
+// stage launches at BG = 4096 read the same (3.853 ms against 3.863). The final
+// block carves the stage plan at C = 256, 2 rows (M = 32; 8 at L = 4),
+// whose QKV holds two of a conv's three staged A parts and OUT the third;
+// final_plan's rows with A value by value read 2.864 ms against 1.473.
+// Every product stages its A (7 a stage, 2 in the final block;
+// --staging). 128 registers each; stage_kernel<float, true> spills 32
+// bytes of stores and 68 of loads, final_kernel<float, true> none. At
+// 16,384 rows a decode's 5 launches take 20.45-20.50 ms against
+// 51.85-51.88 on the CUDA cores, and one full_kernel<float> launch on the
+// same operands 22.73-22.76, its output bitwise equal to the chain's; per
+// launch 1.97, 2.28, 3.29, 6.91 and 5.79 ms (CUDA cores 3.23, 4.15, 6.72,
+// 17.73 and 20.01): stage 3 and the final block, which carry 81 % of the
+// FLOPs, take 63 % of the time. Errors against stage_plain / final_plain read 1.1-2.0 x
+// the CUDA-core instances' on the same operands (BG = 4096 and 1021).
+// (H100 80GB HBM3, 700.00 W, CUDA events; the 4096-row readings by
+// tools/kernel_variants.py.)
+// stage_kernel<float, false> and final_kernel<float, false> keep the
+// CUDA-core body (resnet1d_blocks.cuh: one vector load of a weight row
+// reused over a 4-token register tile, fp32 FMAs; 256 threads,
+// rows_per_block's rows of stage_plan and final_plan; 123 and 99
+// registers, no spill): the CUDA-core control that every float32
+// tensor-core kernel's split is held against (chip_smoke.py and the card
+// tests, through gl_stage_forward_cuda_cores / gl_final_forward_cuda_cores);
+// no main path launches them.
 // wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
@@ -83,14 +110,15 @@ namespace {
 // kernels
 // ---------------------------------------------------------------------------
 
-// stage `stage` of the network: record `stage` of the layout `net` and, for
-// bf16, its entries of the tensor-core table
-template <typename T>
-__global__ void __launch_bounds__(sizeof(T) == 2 ? kTcThreads : kThreads)
+// stage `stage` of the network: record `stage` of the layout `net` and its
+// entries of the tensor-core table. TC: the products on the tensor cores
+// (float32 through the exact bf16 split), 512 threads; otherwise the
+// CUDA-core body at 256 (the float32 control)
+template <typename T, bool TC>
+__global__ void __launch_bounds__(TC ? kTcThreads : kThreads)
 stage_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restrict__ Wf,
              const long long* __restrict__ net, int stage, T* __restrict__ out, int BG, int L,
              int C, int Cout, int E, int Ce, int G, int R) {
-  constexpr bool TC = sizeof(T) == 2;
   extern __shared__ __align__(16) char smem[];
   const Bufs<T> b = carve<T>(smem, stage_plan(L, C, Cout, E, G), R);
   const long long* rec = net + NET_HDR + stage * REC_SIZE;
@@ -115,25 +143,25 @@ stage_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __rest
     if (row0 + idx / Wo < BG) out[(size_t)row0 * Wo + idx] = b.OUT[idx];
 }
 
-// The final block's plan: bf16 carves full_kernel's stage plan at width C,
+// The final block's plan. TC carves full_kernel's stage plan at width C,
 // whose QKV buffer, dead in the final block, holds each conv's staged A
-// operand; float32 keeps the CUDA-core body's final_plan
-template <typename T>
+// operand (float32: its three parts, those past QKV in OUT); the CUDA-core
+// body keeps final_plan, with no such buffers
+template <bool TC>
 __host__ __device__ inline Plan final_tc_plan(int L, int C, int E, int G) {
-  return sizeof(T) == 2 ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);
+  return TC ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);
 }
 
 // the final resblock and the 1x1 head: record n_st of the layout `net`
-// (the record after the n_st stages) and, for bf16, its entries of the
-// tensor-core table
-template <typename T>
-__global__ void __launch_bounds__(sizeof(T) == 2 ? kTcThreads : kThreads)
+// (the record after the n_st stages) and its entries of the tensor-core
+// table; TC as stage_kernel
+template <typename T, bool TC>
+__global__ void __launch_bounds__(TC ? kTcThreads : kThreads)
 final_kernel(const T* __restrict__ x, const T* __restrict__ emb, const T* __restrict__ Wf,
              const long long* __restrict__ net, int n_st, T* __restrict__ out, int BG, int L,
              int C, int E, int Ce, int G, int R) {
-  constexpr bool TC = sizeof(T) == 2;
   extern __shared__ __align__(16) char smem[];
-  const Bufs<T> b = carve<T>(smem, final_tc_plan<T>(L, C, E, G), R);
+  const Bufs<T> b = carve<T>(smem, final_tc_plan<TC>(L, C, E, G), R);
   const long long* rec = net + NET_HDR + n_st * REC_SIZE;
   const int row0 = blockIdx.x * R;
   const int W = L * C;
@@ -191,25 +219,27 @@ ddim_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embi
     if (row0 + idx / L < BG) out[(size_t)row0 * L + idx] = b.XC[idx];
 }
 
-template <typename T>
+// rows_per_block's rows in every instance: the float32 tensor-core stages
+// read the same in tc_rows_per_block's (see the notes at the top)
+template <typename T, bool TC>
 int launch_stage(const void* x, const void* emb, const void* w, const long long* net, int stage,
                  void* out, int BG, int L, int C, int Cout, int E, int Ce, int G,
                  cudaStream_t st) {
-  return launch_rows<T, sizeof(T) == 2 ? kTcThreads : kThreads>(
-      stage_kernel<T>, stage_plan(L, C, Cout, E, G), BG, st, (const T*)x, (const T*)emb,
+  return launch_rows<T, TC ? kTcThreads : kThreads>(
+      stage_kernel<T, TC>, stage_plan(L, C, Cout, E, G), BG, st, (const T*)x, (const T*)emb,
       (const T*)w, net, stage, (T*)out, BG, L, C, Cout, E, Ce, G);
 }
 
-template <typename T>
+template <typename T, bool TC>
 int launch_final(const void* x, const void* emb, const void* w, const long long* net, int n_st,
                  void* out, int BG, int L, int C, int E, int Ce, int G, cudaStream_t st) {
-  const Plan p = final_tc_plan<T>(L, C, E, G);
-  if constexpr (sizeof(T) == 2)
-    return launch_tc_rows<T>(final_kernel<T>, p, L, BG, st, (const T*)x, (const T*)emb,
+  const Plan p = final_tc_plan<TC>(L, C, E, G);
+  if constexpr (TC)
+    return launch_tc_rows<T>(final_kernel<T, TC>, p, L, BG, st, (const T*)x, (const T*)emb,
                              (const T*)w, net, n_st, (T*)out, BG, L, C, E, Ce, G);
   else
-    return launch_rows<T>(final_kernel<T>, p, BG, st, (const T*)x, (const T*)emb, (const T*)w,
-                          net, n_st, (T*)out, BG, L, C, E, Ce, G);
+    return launch_rows<T>(final_kernel<T, TC>, p, BG, st, (const T*)x, (const T*)emb,
+                          (const T*)w, net, n_st, (T*)out, BG, L, C, E, Ce, G);
 }
 
 template <typename T>
@@ -235,16 +265,34 @@ int gl_stage_forward(int dtype, const void* x, const void* emb, const void* w,
                      int E, int Ce, int G, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_stage<float>(x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce, G, st);
-  return launch_stage<__nv_bfloat16>(x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce, G, st);
+    return launch_stage<float, true>(x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce, G, st);
+  return launch_stage<__nv_bfloat16, true>(x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce,
+                                           G, st);
 }
 
 int gl_final_forward(int dtype, const void* x, const void* emb, const void* w,
                      const long long* net, int n_st, void* out, int BG, int L, int C, int E,
                      int Ce, int G, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) return launch_final<float>(x, emb, w, net, n_st, out, BG, L, C, E, Ce, G, st);
-  return launch_final<__nv_bfloat16>(x, emb, w, net, n_st, out, BG, L, C, E, Ce, G, st);
+  if (dtype == 0)
+    return launch_final<float, true>(x, emb, w, net, n_st, out, BG, L, C, E, Ce, G, st);
+  return launch_final<__nv_bfloat16, true>(x, emb, w, net, n_st, out, BG, L, C, E, Ce, G, st);
+}
+
+// The float32 CUDA-core control of the two (no main path launches it): the
+// same arguments, float32 only
+int gl_stage_forward_cuda_cores(const void* x, const void* emb, const void* w,
+                                const long long* net, int stage, void* out, int BG, int L, int C,
+                                int Cout, int E, int Ce, int G, void* stream) {
+  return launch_stage<float, false>(x, emb, w, net, stage, out, BG, L, C, Cout, E, Ce, G,
+                                    (cudaStream_t)stream);
+}
+
+int gl_final_forward_cuda_cores(const void* x, const void* emb, const void* w,
+                                const long long* net, int n_st, void* out, int BG, int L, int C,
+                                int E, int Ce, int G, void* stream) {
+  return launch_final<float, false>(x, emb, w, net, n_st, out, BG, L, C, E, Ce, G,
+                                    (cudaStream_t)stream);
 }
 
 int gl_ddim_sample(int dtype, const float* xT, const float* embin, const float* trows,

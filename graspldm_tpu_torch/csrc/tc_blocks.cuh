@@ -4,7 +4,7 @@
 // ddim_step_kernel, churn_sampler_kernel, churn_step_kernel and
 // dpmpp_sampler_kernel (step_samplers.cu, churn_sampler.cu,
 // dpmpp_sampler.cu; all through net_body in sampler_body.cuh), and
-// stage_kernel<bf16> and final_kernel<bf16> (kernels.cu).
+// stage_kernel and final_kernel in both dtypes (kernels.cu).
 //
 // What moves here from resnet1d_blocks.cuh's CUDA-core products: the
 // resblocks' two k3 convs, the k3 projection (conv3) and the attention's
@@ -15,10 +15,10 @@
 // softmaxes and the L x L score and value products stay on the CUDA cores
 // (the scores in another summation order, below).
 //
-// float32 (full_kernel<float>, the float32 DDIM, DPM++ and churn kernels): the exact bf16
-// split. The function stays the float32 one. A float32 value is the sum of
-// three bf16 values exactly (8 + 8 + 8 significant bits hold its 24
-// wherever no part underflows bf16):
+// float32 (full_kernel<float>, the float32 decoder pair, DDIM, DPM++ and
+// churn kernels): the exact bf16 split. The function stays the float32 one.
+// A float32 value is the sum of three bf16 values exactly (8 + 8 + 8
+// significant bits hold its 24 wherever no part underflows bf16):
 // x1 = bf16(x), x2 = bf16(x - x1), x3 = bf16(x - x1 - x2). The weights are
 // split at packing time (stacked_cuda.bf16_parts), the activations when a
 // product stages its A operand. Of the nine bf16 products a_i * w_j the six

@@ -50,6 +50,9 @@ _SOURCES = {
         "gl_stage_forward": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
         # dtype, x, emb, w, net, n_st, out, BG, L, C, E, Ce, G, stream
         "gl_final_forward": [_I, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
+        # the float32 CUDA-core control of the two: the same without dtype
+        "gl_stage_forward_cuda_cores": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        "gl_final_forward_cuda_cores": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _P],
         # dtype, xT, embin, trows, coefs, noise, w, net, out, BG, S, L, E, Ce, G,
         # cmax, clip, clip_range, stream
         "gl_ddim_sample": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,

@@ -25,10 +25,14 @@ built from ``csrc/resnet1d_blocks.cuh``:
 
 All are generic over L (4 for the denoiser, 16 for the VAE decoder) and the
 stage widths, and take float32 or bfloat16 activations and weights.
-``full_kernel`` (both dtypes) and the bf16 ``stage_kernel`` run their
-products on the tensor cores from the fragment-ordered copies
+``stage_kernel``, ``final_kernel`` and ``full_kernel`` run their products
+on the tensor cores in both dtypes, from the fragment-ordered copies
 (:func:`tc_fragments`) that :class:`PackedNet` appends after the math form;
-float32 through the exact bf16 split (:func:`bf16_parts`). What bounds them
+float32 through the exact bf16 split (:func:`bf16_parts`). The float32
+``stage_kernel`` and ``final_kernel`` also keep their CUDA-core instances,
+the control that every float32 tensor-core kernel is held against
+(``stage_apply(..., cuda_cores=True)``, ``final_apply(..., cuda_cores=True)``;
+counted apart, and launched by no main path). What bounds them
 on the H100 and what the design does about it is in the notes at the top of
 ``csrc/kernels.cu``, ``csrc/full_net.cu``, ``csrc/tc_blocks.cuh`` and
 ``csrc/hybrid.cu``.
@@ -57,6 +61,8 @@ __all__ = [
     "KernelCounter",
     "STAGE_KERNEL",
     "FINAL_KERNEL",
+    "STAGE_KERNEL_CUDA_CORES",
+    "FINAL_KERNEL_CUDA_CORES",
     "FULL_KERNEL",
     "HYBRID_STAGE_KERNEL",
     "HYBRID_FINAL_KERNEL",
@@ -96,6 +102,9 @@ LN_EPS = 1e-5  # the kernel path's LayerNorm eps in every dtype (as stacked_pall
 
 STAGE_KERNEL = KernelCounter("stage_kernel")
 FINAL_KERNEL = KernelCounter("final_kernel")
+# the float32 CUDA-core control of the two (``cuda_cores=True``), counted apart
+STAGE_KERNEL_CUDA_CORES = KernelCounter("stage_kernel_cuda_cores")
+FINAL_KERNEL_CUDA_CORES = KernelCounter("final_kernel_cuda_cores")
 FULL_KERNEL = KernelCounter("full_kernel")
 HYBRID_STAGE_KERNEL = KernelCounter("hybrid_stage_kernel")
 HYBRID_FINAL_KERNEL = KernelCounter("hybrid_final_kernel")
@@ -434,47 +443,66 @@ def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
-def stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """Network stage ``i`` on ``x [BG, L*C_i]`` with FiLM input ``emb [BG, Ce*E]``."""
-    if not on_cuda(x):
-        return stage_plain(w, i, x, emb)
+def _control(w: PackedNet, cuda_cores: bool) -> None:
+    if cuda_cores and w.dtype != torch.float32:
+        raise ValueError("cuda_cores: the CUDA-core control of stage_kernel and final_kernel "
+                         f"is float32 only, not {w.dtype}")
+
+
+def _launch(fn: str, counter: KernelCounter, w: PackedNet, x: torch.Tensor, *args,
+            cuda_cores: bool) -> None:
+    """Launch C entry ``fn`` (``*_cuda_cores``: the control, which takes no
+    dtype) on ``x``'s stream with ``args`` after the dtype; count it."""
     from ..cuda_build import load_library
 
+    lib = load_library()
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    if cuda_cores:
+        rc = getattr(lib, fn + "_cuda_cores")(*args, stream)
+    else:
+        rc = getattr(lib, fn)(DTYPE_CODE[w.dtype], *args, stream)
+    check_launch(rc, counter.name)
+    counter.launches += 1
+
+
+def stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor,
+                cuda_cores: bool = False) -> torch.Tensor:
+    """Network stage ``i`` on ``x [BG, L*C_i]`` with FiLM input ``emb [BG, Ce*E]``.
+
+    ``cuda_cores=True`` launches the float32 CUDA-core control
+    (``STAGE_KERNEL_CUDA_CORES``) in place of the tensor cores; no main path
+    does. It raises for a bf16 pack, which has no such instance."""
+    _control(w, cuda_cores)
+    if not on_cuda(x):
+        return stage_plain(w, i, x, emb)
     d = w.dims
     L, C, Cout = d.seq_len, d.cins[i], d.block_channels[i]
     BG = x.shape[0]
     _check("x", x, (BG, L * C), w.dtype, w.device)
     _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
     out = torch.empty((BG, L * Cout), dtype=w.dtype, device=x.device)
-    rc = load_library().gl_stage_forward(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), i, _ptr(out), BG,
-        L, C, Cout, d.emb_dim, d.cond_channels, d.groups,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
-    check_launch(rc, "stage_kernel")
-    STAGE_KERNEL.launches += 1
+    _launch("gl_stage_forward", STAGE_KERNEL_CUDA_CORES if cuda_cores else STAGE_KERNEL, w, x,
+            _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), i, _ptr(out), BG, L, C, Cout,
+            d.emb_dim, d.cond_channels, d.groups, cuda_cores=cuda_cores)
     return out
 
 
-def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
-    """Final ResnetBlock + head on ``x [BG, L*C]`` -> ``[BG, L]``."""
+def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor,
+                cuda_cores: bool = False) -> torch.Tensor:
+    """Final ResnetBlock + head on ``x [BG, L*C]`` -> ``[BG, L]``;
+    ``cuda_cores`` as :func:`stage_apply` (``FINAL_KERNEL_CUDA_CORES``)."""
+    _control(w, cuda_cores)
     if not on_cuda(x):
         return final_plain(w, x, emb)
-    from ..cuda_build import load_library
-
     d = w.dims
     L, C = d.seq_len, d.block_channels[-1]
     BG = x.shape[0]
     _check("x", x, (BG, L * C), w.dtype, w.device)
     _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
     out = torch.empty((BG, L), dtype=w.dtype, device=x.device)
-    rc = load_library().gl_final_forward(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout),
-        len(d.block_channels), _ptr(out), BG, L, C, d.emb_dim, d.cond_channels, d.groups,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
-    check_launch(rc, "final_kernel")
-    FINAL_KERNEL.launches += 1
+    _launch("gl_final_forward", FINAL_KERNEL_CUDA_CORES if cuda_cores else FINAL_KERNEL, w, x,
+            _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), len(d.block_channels), _ptr(out),
+            BG, L, C, d.emb_dim, d.cond_channels, d.groups, cuda_cores=cuda_cores)
     return out
 
 

@@ -9,7 +9,8 @@ timed call runs with every variant's entry in turn, forward and back, on
 the same operands (seeded weights of the fpc / ppc flagship denoisers and
 the VAE decoder), and the line prints each variant's lesser ms of its two
 turns and, for ``full_kernel``, its error against ``full_plain`` relative
-to max(1, max|ref|), beside the float32 stage chain's (the CUDA cores).
+to max(1, max|ref|), beside the float32 stage chain's CUDA-core control's
+(``cuda_cores=True``).
 ``--kernels`` limits the timed calls (and the sources built) to some of
 ``full``, ``ddim``, ``stage``, ``final``, ``churn`` and ``dpmpp``. Each
 nvcc's ``-Xptxas -v`` report gives every built kernel's registers and
@@ -31,17 +32,20 @@ the full BG and at the ragged 1021), which chip_smoke.py holds in bf16
 ``dpmpp_sampler_kernel`` (32 steps) in both dtypes at the fpc and ppc
 denoisers, with the float32 kernel's largest error against
 ``dpmpp_sampler_plain`` and the bf16 kernel's mean error over a 2-step
-trajectory (``TOL_BF16_EDM_STEP_MEAN``). The final-block lines time
-``final_kernel<bf16>`` at the VAE decoder (BG = 4096 and 1021) with its
-largest error against ``final_plain``.
+trajectory (``TOL_BF16_EDM_STEP_MEAN``). The decoder lines time a
+decode's 4 ``stage_kernel`` launches (BG = 4096) and ``final_kernel`` (BG =
+4096 and 1021) at the VAE decoder in both dtypes, with the largest error
+against ``stage_plain`` / ``final_plain`` (the stages' in float32 only),
+in float32 beside the CUDA-core control's error and time.
 
 ``--staging`` builds the sources of the float32 tensor-core sampler kernels
-(the DPM++ sampler, the churn pair, the DDIM pair) and of
-``final_kernel<bf16>`` once more with a counter of the path each
+(the DPM++ sampler, the churn pair, the DDIM pair) and of the decoder's
+``stage_kernel`` and ``final_kernel`` once more with a counter of the path each
 tensor-core product of block 0 takes (its A staged in the dead buffers;
 read value by value for a width off the 16-wide k-step; or value by value
 for want of room, which must read 0) and prints the counts of one launch of
-each at the fpc and ppc denoisers (the final block: at the decoder).
+each at the fpc and ppc denoisers (the decoder's: at the decoder, the
+stages in float32, the final block in both dtypes).
 
     python -m graspldm_tpu_torch.tools.kernel_variants [--kernels K ...] [--staging] [VARIANT ...]
 
@@ -147,14 +151,23 @@ VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
         (_SB, "template <typename T> constexpr int kDdimStepThreads = kTcThreads;",
          "template <typename T> constexpr int kDdimStepThreads = sizeof(T) == 4 ? kTcThreads "
          ": kThreads;")],
-    "bf16 final block in 6 rows, staging room in OUT": [
-        (_K, "  return sizeof(T) == 2 ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
+    "final block in final_plan's rows, staging room for one A part in OUT": [
+        (_K, "  return TC ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
          "  Plan p = final_plan(L, C, E, G);\n"
-         "  if (sizeof(T) == 2) p.out = up8((L + 1) * (C + 8));\n"
+         "  if (TC) p.out = up8((L + 1) * (C + 8));\n"
          "  return p;")],
-    "bf16 final block in 8 rows, A value by value": [
-        (_K, "  return sizeof(T) == 2 ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
+    "final block in final_plan's rows, A value by value": [
+        (_K, "  return TC ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
          "  return final_plan(L, C, E, G);")],
+    "fp32 decoder stages in tc_rows_per_block's rows": [
+        (_K, "  return launch_rows<T, TC ? kTcThreads : kThreads>(\n"
+             "      stage_kernel<T, TC>, stage_plan(L, C, Cout, E, G), BG, st,",
+         "  if constexpr (TC && sizeof(T) == 4)\n"
+         "    return launch_tc_rows<T>(stage_kernel<T, TC>, stage_plan(L, C, Cout, E, G), L, BG,"
+         " st, (const T*)x, (const T*)emb, (const T*)w, net, stage, (T*)out, BG, L, C, Cout, E,"
+         " Ce, G);\n"
+         "  else return launch_rows<T, TC ? kTcThreads : kThreads>(\n"
+         "      stage_kernel<T, TC>, stage_plan(L, C, Cout, E, G), BG, st,")],
     "bf16 DPM++ on the tensor cores": [
         (_SB, "template <typename T> constexpr bool kDpmppTc = sizeof(T) == 4;",
          "template <typename T> constexpr bool kDpmppTc = true;")],
@@ -173,6 +186,7 @@ _STAGED = {"dpmpp_sampler_kernel": ("dpmpp_sampler.cu", "gl_dpmpp_sample"),
            "churn_step_kernel": ("step_samplers.cu", "gl_churn_step"),
            "ddim_sampler_kernel": ("kernels.cu", "gl_ddim_sample"),
            "ddim_step_kernel": ("step_samplers.cu", "gl_ddim_step"),
+           "stage_kernel": ("kernels.cu", "gl_stage_forward"),
            "final_kernel": ("kernels.cu", "gl_final_forward")}
 # block 0's tensor-core products by path: staged, off the k-step, no room
 _STAGING = [
@@ -205,7 +219,8 @@ def patched_sources(patches: List[Tuple[str, str, str]]) -> Dict[str, str]:
 
 
 # a kernel's ptxas -v report: its short name, spills, registers
-_PTXAS = re.compile(r"Function properties for \w*?\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)E\w*\n"
+_PTXAS = re.compile(r"Function properties for \w*?\d+([a-z_]+_kernel)I(13__nv_bfloat16|f)(Lb[01]E)?E"
+                    r"\w*\n"
                     r"\s*\d+ bytes stack frame, (\d+ bytes spill stores, \d+ bytes spill loads)\n"
                     r"[^\n]*Used (\d+) registers")
 
@@ -231,9 +246,9 @@ def _build(variants: Dict[str, List[Tuple[str, str, str]]], sources,
         out, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name} {src}:\n{err[-4000:]}")
-        for kernel, dt, spill, regs in _PTXAS.findall(out + err):
-            print(f"ptxas {name}: {kernel}<{'fp32' if dt == 'f' else 'bf16'}>: {regs} registers, "
-                  f"{spill}", flush=True)
+        for kernel, dt, tc, spill, regs in _PTXAS.findall(out + err):
+            inst = ("fp32" if dt == "f" else "bf16") + (", CUDA cores" if tc == "Lb0E" else "")
+            print(f"ptxas {name}: {kernel}<{inst}>: {regs} registers, {spill}", flush=True)
         lib = ctypes.CDLL(str(d / f"{src}.so"))
         for entry, argtypes in _SOURCES[src].items():
             fn = getattr(lib, entry)
@@ -288,10 +303,12 @@ def _full_operands(w, bg: int, gen, dev):
     return sc.init_conv(w, x).reshape(bg, -1).to(w.dtype).contiguous(), emb.contiguous()
 
 
-def _chain(w, x, emb):
+def _chain(w, x, emb, cuda_cores: bool = True):
+    """The stage chain: 4 ``stage_kernel`` launches and ``final_kernel``; by
+    default the float32 CUDA-core control."""
     for i in range(len(w.dims.block_channels)):
-        x = sc.stage_apply(w, i, x, emb)
-    return sc.final_apply(w, x, emb)
+        x = sc.stage_apply(w, i, x, emb, cuda_cores=cuda_cores)
+    return sc.final_apply(w, x, emb, cuda_cores=cuda_cores)
 
 
 _PPC = dict(pc_latent_size=256, grasp_latent_size=16)
@@ -330,8 +347,9 @@ def staging(dev, gen, sched) -> None:
     """Print block 0's tensor-core products by path for one launch of each
     float32 tensor-core sampler kernel (2-step tables: 4 network evaluations
     a churn sampler launch, 2 a churn step, DDIM or DPM++ sampler launch, 1
-    a DDIM step) at the fpc and ppc EDM denoisers, and of
-    ``final_kernel<bf16>`` at the VAE decoder (BG = 4096)."""
+    a DDIM step) at the fpc and ppc EDM denoisers, and of the float32
+    ``stage_kernel`` launches and ``final_kernel`` in both dtypes at the VAE
+    decoder (BG = 4096)."""
     root = BUILD_DIR / "staging"
     sources = sorted({src for src, _ in _STAGED.values()})
     libs = _build({"staging": _STAGING}, sources, root=root.name)["staging"]
@@ -377,24 +395,30 @@ def staging(dev, gen, sched) -> None:
             }
             for name, (evals, call) in calls.items():
                 count(name, f"fp32 {label} L={dims.seq_len} BG={bg}", evals, call)
-        wd, xs, embd = _decoder_operands(dev, gen)
-        count("final_kernel", "bf16 decoder L=16 BG=4096", 1,
-              lambda: sc.final_apply(wd, xs[-1], embd))
+        for dt in (torch.bfloat16, torch.float32):
+            wd, xs, embd = _decoder_operands(dev, gen, dt)
+            tag = "fp32" if dt == torch.float32 else "bf16"
+            if dt == torch.float32:
+                for i in range(len(xs) - 1):
+                    count("stage_kernel", f"fp32 decoder stage {i} L=16 BG=4096", 1,
+                          lambda: sc.stage_apply(wd, i, xs[i], embd))
+            count("final_kernel", f"{tag} decoder L=16 BG=4096", 1,
+                  lambda: sc.final_apply(wd, xs[-1], embd))
     finally:
         for entry, fn in own.items():
             setattr(ns, entry, fn)
 
 
-def _decoder_operands(dev, gen):
-    """The bf16 VAE decoder's pack, the input of each of its launches (4
-    stages, then the final block) and the FiLM input, over 4096 rows."""
+def _decoder_operands(dev, gen, dtype=torch.bfloat16):
+    """The VAE decoder's pack in ``dtype``, the input of each of its launches
+    (4 stages, then the final block) and the FiLM input, over 4096 rows."""
     vae = build_flagship(FlagshipConfig(), generator=torch.Generator().manual_seed(0),
                          device=dev)[0]
     dd = decoder_dims_for(vae)
-    wd = sc.PackedNet(pack_math_weights(vae.decoder.net, dd), dd, torch.bfloat16, dev)
+    wd = sc.PackedNet(pack_math_weights(vae.decoder.net, dd), dd, dtype, dev)
     embd = torch.randn((4096, dd.cond_channels * dd.emb_dim), generator=gen,
-                       device=dev).to(torch.bfloat16)
-    xs = [torch.randn((4096, dd.seq_len * C), generator=gen, device=dev).to(torch.bfloat16)
+                       device=dev).to(dtype)
+    xs = [torch.randn((4096, dd.seq_len * C), generator=gen, device=dev).to(dtype)
           for C in dd.cins + (dd.block_channels[-1],)]
     return wd, xs, embd
 
@@ -541,19 +565,48 @@ def main(argv=None) -> None:
                            f"3-step mean err at BG={bg}", ms, err, what="3-step mean err")
     if not kernels & {"stage", "final"}:
         return
-    wd, xs, embd = _decoder_operands(dev, gen)
-    if "stage" in kernels:
-        report("stage_kernel bf16 L=16 BG=4096, a decode's 4 launches",
-               _turns(libs, "gl_stage_forward",
-                      lambda: [sc.stage_apply(wd, i, xs[i], embd) for i in range(len(xs) - 1)],
-                      10))
-    if "final" in kernels:
-        for bg in (4096, 1021):
-            x, emb = xs[-1][:bg].contiguous(), embd[:bg].contiguous()
-            report(f"final_kernel bf16 L=16 BG={bg}",
-                   _turns(libs, "gl_final_forward", lambda: sc.final_apply(wd, x, emb), 10),
-                   _errors(libs, "gl_final_forward", lambda: sc.final_apply(wd, x, emb),
-                           sc.final_plain(wd, x, emb).float()))
+    for dt in (torch.bfloat16, torch.float32):
+        wd, xs, embd = _decoder_operands(dev, gen, dt)
+        tag = "fp32" if dt == torch.float32 else "bf16"
+        fp32 = dt == torch.float32
+        if "stage" in kernels:
+            # float32: each variant's largest error over the 4 launches against
+            # stage_plain, beside the CUDA-core control's
+            refs = [sc.stage_plain(wd, i, xs[i], embd).float() for i in range(len(xs) - 1)]
+            top = max(max(1.0, r.abs().max().item()) for r in refs)
+
+            def stages(cuda_cores=False):
+                return [sc.stage_apply(wd, i, xs[i], embd, cuda_cores=cuda_cores)
+                        for i in range(len(xs) - 1)]
+
+            def worst():  # relative to the largest max(1, max|ref|) of the 4
+                return torch.stack([(g.float() - r).abs().max() for g, r in
+                                    zip(stages(), refs)]).max() / top
+
+            control = None
+            if fp32:
+                control = max((g.float() - r).abs().max().item()
+                              for g, r in zip(stages(True), refs)) / top
+                control_ms = 1e3 * timeit(lambda _: stages(True), torch.empty(0, device=dev),
+                                          iters=10)
+                print(f"stage_kernel fp32 CUDA-core control, a decode's 4 launches: "
+                      f"{control_ms:.3f} ms", flush=True)
+            report(f"stage_kernel {tag} L=16 BG=4096, a decode's 4 launches",
+                   _turns(libs, "gl_stage_forward", stages, 10),
+                   _errors(libs, "gl_stage_forward", worst, torch.zeros(())) if fp32 else None,
+                   control, what="max err")
+        if "final" in kernels:
+            for bg in (4096, 1021):
+                x, emb = xs[-1][:bg].contiguous(), embd[:bg].contiguous()
+                ref = sc.final_plain(wd, x, emb).float()
+                control = None
+                if fp32:
+                    control = ((sc.final_apply(wd, x, emb, cuda_cores=True).float() - ref)
+                               .abs().max().item() / max(1.0, ref.abs().max().item()))
+                report(f"final_kernel {tag} L=16 BG={bg}",
+                       _turns(libs, "gl_final_forward", lambda: sc.final_apply(wd, x, emb), 10),
+                       _errors(libs, "gl_final_forward", lambda: sc.final_apply(wd, x, emb),
+                               ref), control)
 
 
 if __name__ == "__main__":

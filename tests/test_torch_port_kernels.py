@@ -37,7 +37,9 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def _counts():
-    return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.FULL_KERNEL,
+    return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL,
+                                      sc.STAGE_KERNEL_CUDA_CORES, sc.FINAL_KERNEL_CUDA_CORES,
+                                      sc.FULL_KERNEL,
                                       sc.HYBRID_STAGE_KERNEL, sc.HYBRID_FINAL_KERNEL,
                                       cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL, cs.CHURN_KERNEL,
                                       cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
@@ -125,6 +127,30 @@ def test_wrappers_run_plain_versions_on_cpu(nets):
     torch.testing.assert_close(sc.full_apply(w, x0, emb), sc.full_plain(w, x0, emb),
                                rtol=0, atol=0)
     assert _counts() == before
+
+
+def test_cuda_core_control_is_float32_only(nets):
+    """``cuda_cores=True`` (the float32 CUDA-core control of stage_kernel and
+    final_kernel) takes the plain version on CPU tensors, counts no launch,
+    and is refused for a bf16 pack, which has no CUDA-core instance."""
+    d = nets["dec_dims"]
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn(3, d.seq_len * d.cins[2], generator=g)
+    h = torch.randn(3, d.seq_len * d.block_channels[-1], generator=g)
+    emb = torch.randn(3, d.cond_channels * d.emb_dim, generator=g)
+    w = sc.PackedNet(nets["dec_math"], d)
+    before = _counts()
+    torch.testing.assert_close(sc.stage_apply(w, 2, x, emb, cuda_cores=True),
+                               sc.stage_plain(w, 2, x, emb), rtol=0, atol=0)
+    torch.testing.assert_close(sc.final_apply(w, h, emb, cuda_cores=True),
+                               sc.final_plain(w, h, emb), rtol=0, atol=0)
+    assert _counts() == before
+    wb = sc.PackedNet(nets["dec_math"], d, torch.bfloat16)
+    b16 = torch.bfloat16
+    with pytest.raises(ValueError, match="float32 only"):
+        sc.stage_apply(wb, 2, x.to(b16), emb.to(b16), cuda_cores=True)
+    with pytest.raises(ValueError, match="float32 only"):
+        sc.final_apply(wb, h.to(b16), emb.to(b16), cuda_cores=True)
 
 
 def test_hybrid_wrappers_run_plain_versions_on_cpu(nets):
@@ -480,11 +506,12 @@ def test_full_kernel_matches_plain_and_the_stage_chain_on_card(cuda, nets, dtype
     chain of 4 ``stage_kernel`` + ``final_kernel`` launches on the same
     operands, at the fpc and ppc denoisers with a ragged row count.
     ``full_kernel`` runs its products on the tensor cores (float32 through
-    the exact bf16 split), the chain's float32 stages and its final block on
-    the CUDA cores, so the two sum in another order: bf16 within its limit
-    of the chain; float32 within ``SPLIT_VS_CUDA_CORES`` of the chain's
-    error against ``full_plain``, and within ``SPLIT_VS_CHAIN`` of the
-    chain itself (a split that lost float32 precision fails both)."""
+    the exact bf16 split); the float32 chain is the CUDA-core control
+    (``cuda_cores=True``), so the two sum in another order: bf16 within its
+    limit of the chain (the tensor cores in both); float32 within
+    ``SPLIT_VS_CUDA_CORES`` of the control's error against ``full_plain``,
+    and within ``SPLIT_VS_CHAIN`` of the control itself (a split that lost
+    float32 precision fails both)."""
     math, dims = nets["den"][L]
     w = sc.PackedNet(math, dims, dtype, cuda)
     g = torch.Generator(device=cuda).manual_seed(12)
@@ -494,10 +521,11 @@ def test_full_kernel_matches_plain_and_the_stage_chain_on_card(cuda, nets, dtype
     before = sc.FULL_KERNEL.launches
     got = sc.full_apply(w, x, emb)
     assert sc.FULL_KERNEL.launches == before + 1
+    control = dtype == torch.float32
     h = x
     for i in range(len(dims.block_channels)):
-        h = sc.stage_apply(w, i, h, emb)
-    chain = sc.final_apply(w, h, emb)
+        h = sc.stage_apply(w, i, h, emb, cuda_cores=control)
+    chain = sc.final_apply(w, h, emb, cuda_cores=control)
     torch.cuda.synchronize()
     ref = sc.full_plain(w, x, emb)
     assert got.shape == (BG, dims.seq_len) and got.dtype == dtype
@@ -751,14 +779,15 @@ def test_churn_kernels_take_narrow_models_on_card(cuda, channels, dtype):
 
 
 def _chain_net(wn, x_in, embin, trow):
-    """``cuda_sampler._net_plain`` with the float32 stage chain for its
-    network (stage_kernel x 4 + final_kernel, the CUDA cores); the init conv
-    and the FiLM input as the plain version computes them."""
+    """``cuda_sampler._net_plain`` with the float32 stage chain's CUDA-core
+    control for its network (stage_kernel x 4 + final_kernel,
+    ``cuda_cores=True``); the init conv and the FiLM input as the plain
+    version computes them."""
     emb = torch.nn.functional.silu(embin + trow).to(wn.dtype)
     h = sc.init_conv(wn, x_in).reshape(x_in.shape[0], -1).to(wn.dtype)
     for i in range(len(wn.dims.block_channels)):
-        h = sc.stage_apply(wn, i, h, emb)
-    return sc.final_apply(wn, h, emb).float()
+        h = sc.stage_apply(wn, i, h, emb, cuda_cores=True)
+    return sc.final_apply(wn, h, emb, cuda_cores=True).float()
 
 
 @pytest.mark.cuda
@@ -862,6 +891,187 @@ def test_bf16_final_kernel_matches_plain_at_the_decoder_widths_on_card(cuda, net
     ref = sc.final_plain(w, x, emb)
     assert got.shape == (BG, d.seq_len) and got.dtype == torch.bfloat16
     torch.testing.assert_close(got.float(), ref.float(), **_rel(TOLS[torch.bfloat16], ref))
+
+
+# ---------------------------------------------------------------------------
+# the float32 decoder on the tensor cores (the exact bf16 split) against its
+# CUDA-core control
+# ---------------------------------------------------------------------------
+
+
+def _decoder_vae(config: str) -> GraspCVAE:
+    """A VAE at the flagship decoder's widths (L = 16; 32/64/128/256) with the
+    fpc or ppc flagship's conditioning and latent (z_pc [3, 64] and 4, [3,
+    256] and 16); its small PVCNN is not read."""
+    torch.manual_seed(0)
+    latent, pc = {"fpc": (4, 64), "ppc": (16, 256)}[config]
+    return GraspCVAE(grasp_latent_size=latent, pc_latent_size=pc, dropout=None,
+                     pc_num_points=32, pc_scale_channels=0.25,
+                     pc_scale_voxel_resolution=0.25).eval()
+
+
+def _decode_latents(vae: GraspCVAE, BG: int, seed: int, device):
+    g = torch.Generator().manual_seed(seed)
+    z_h = torch.randn(BG, vae.grasp_latent_size, generator=g)
+    z_pc = torch.randn(BG, vae.pc_latent_channels, vae.pc_latent_size, generator=g)
+    return z_h.to(device), z_pc.to(device)
+
+
+def _decode_inputs(vae: GraspCVAE, w, BG: int, seed: int, device):
+    """The decode's core operands as ``decoder_fast_apply`` makes them from
+    random latents: the init conv's output (stage 0's input) and the FiLM
+    input."""
+    from graspldm_tpu_torch.models.stacked_denoiser import compute_emb_s_stacked
+
+    z_h, z_pc = _decode_latents(vae, BG, seed, device)
+    x = z_h @ w.aux["dec_in_w"] + w.aux["dec_in_b"]
+    emb = compute_emb_s_stacked(w.aux, None, z_pc).to(w.dtype).contiguous()
+    return sc.init_conv(w, x).reshape(BG, -1).to(w.dtype).contiguous(), emb
+
+
+def _control_verdict(got, ctl, ref):
+    """The kernel's and the CUDA-core control's largest errors against the
+    plain version, relative to max(1, max|ref|)."""
+    top = max(1.0, ref.abs().max().item())
+    return ((got.float() - ref.float()).abs().max().item() / top,
+            (ctl.float() - ref.float()).abs().max().item() / top)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BG", [4096, 1021])
+@pytest.mark.parametrize("config", ["fpc", "ppc"])
+def test_float32_decoder_kernels_within_the_cuda_core_control_on_card(cuda, config, BG):
+    """The float32 ``stage_kernel`` (each stage) and ``final_kernel`` on the
+    tensor cores (the exact bf16 split) against ``stage_plain`` /
+    ``final_plain`` at the decoder's widths: within TOLS[float32], and their
+    error within ``SPLIT_VS_CUDA_CORES`` of the CUDA-core control's on the
+    same operands (each stage's input is the plain chain's). Each launch is
+    counted by its own counter."""
+    from graspldm_tpu_torch.models.fast_decoder import pack_decoder_weights
+
+    vae = _decoder_vae(config)
+    d = decoder_dims_for(vae)
+    w = pack_decoder_weights(vae, d, torch.float32, cuda)
+    h, emb = _decode_inputs(vae, w, BG, 17, cuda)
+    n = len(d.block_channels)
+    for i in range(n + 1):
+        stage = i < n
+        counters = ((sc.STAGE_KERNEL, sc.STAGE_KERNEL_CUDA_CORES) if stage
+                    else (sc.FINAL_KERNEL, sc.FINAL_KERNEL_CUDA_CORES))
+        before = [k.launches for k in counters]
+        if stage:
+            got, ctl = sc.stage_apply(w, i, h, emb), sc.stage_apply(w, i, h, emb, cuda_cores=True)
+            ref = sc.stage_plain(w, i, h, emb)
+        else:
+            got, ctl = sc.final_apply(w, h, emb), sc.final_apply(w, h, emb, cuda_cores=True)
+            ref = sc.final_plain(w, h, emb)
+        torch.cuda.synchronize()
+        assert [k.launches for k in counters] == [b + 1 for b in before]
+        torch.testing.assert_close(got, ref, **_rel(TOLS[torch.float32], ref))
+        err, ctl_err = _control_verdict(got, ctl, ref)
+        print(f"{config} BG={BG} {f'stage {i}' if stage else 'final'}: split {err:.3e}, "
+              f"CUDA-core control {ctl_err:.3e} of max(1, max|ref|)")
+        assert err <= SPLIT_VS_CUDA_CORES * ctl_err, (i, err, ctl_err)
+        h = ref
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("BG", [4096, 1021])
+@pytest.mark.parametrize("config", ["fpc", "ppc"])
+def test_float32_split_chain_matches_full_kernel_on_card(cuda, config, BG):
+    """The decoder's float32 chain on the split (4 ``stage_kernel`` +
+    ``final_kernel`` launches) and one ``full_kernel<float>`` launch, the
+    same body and products, on the same operands: within ``SPLIT_VS_CHAIN``
+    of max(1, max|ref|) of each other (whether they are bitwise equal is
+    printed), and each within TOLS[float32] of ``full_plain``."""
+    from graspldm_tpu_torch.models.fast_decoder import pack_decoder_weights
+
+    vae = _decoder_vae(config)
+    d = decoder_dims_for(vae)
+    w = pack_decoder_weights(vae, d, torch.float32, cuda)
+    x, emb = _decode_inputs(vae, w, BG, 18, cuda)
+    h = x
+    for i in range(len(d.block_channels)):
+        h = sc.stage_apply(w, i, h, emb)
+    chain = sc.final_apply(w, h, emb)
+    full = sc.full_apply(w, x, emb)
+    torch.cuda.synchronize()
+    ref = sc.full_plain(w, x, emb)
+    top = max(1.0, ref.abs().max().item())
+    apart = (chain - full).abs().max().item()
+    print(f"{config} BG={BG}: split chain and full_kernel<float> {apart / top:.3e} of "
+          f"max(1, max|ref|) apart, bitwise equal: {bool(torch.equal(chain, full))}")
+    assert apart <= SPLIT_VS_CHAIN * top, apart
+    for got in (chain, full):
+        torch.testing.assert_close(got, ref, **_rel(TOLS[torch.float32], ref))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("config", ["fpc", "ppc"])
+def test_float32_decoder_fast_apply_matches_decode_on_card(cuda, config):
+    """``decoder_fast_apply`` of a float32 pack against ``GraspCVAE.decode``
+    on the card (TF32 off) at a decode's 4096 rows: one decode makes 4
+    ``stage_kernel`` and 1 ``final_kernel`` launches on the tensor cores and
+    none of the CUDA-core control."""
+    from graspldm_tpu_torch.models.fast_decoder import decoder_fast_apply, pack_decoder_weights
+
+    vae = _decoder_vae(config).to(cuda)
+    w = pack_decoder_weights(vae, decoder_dims_for(vae), torch.float32, cuda)
+    z_h, z_pc = _decode_latents(vae, 4096, 19, cuda)
+    before = _counts()
+    got = decoder_fast_apply(w, z_h, z_pc)
+    counted = [a - b for a, b in zip(_counts(), before)]
+    with torch.no_grad():
+        want = vae.decode(z_h, z_pc)
+    torch.cuda.synchronize()
+    assert counted[:4] == [4, 1, 0, 0] and not any(counted[4:]), counted
+    assert len(got) == len(want)
+    for g_, r in zip(got, want):
+        torch.testing.assert_close(g_, r, **_rel(TOLS[torch.float32], r))
+
+
+# sha256 of the bf16 stage_kernel / final_kernel outputs of
+# _bf16_decoder_outputs, read on an H100 80GB HBM3 (torch 2.11, CUDA 12.8)
+# from the kernels as they were before the float32 instances moved to the
+# tensor cores; bf16 runs the same code, and read the same bits after
+BF16_DECODER_DIGEST = "078a282061313b670c3f32d8f9e60aabb28b989c7107c56e7639af6d77d7293e"
+
+
+def _bf16_decoder_outputs(dec_math, dims, device) -> list:
+    """The bf16 decoder's 4 ``stage_kernel`` and its ``final_kernel`` launches
+    at BG 4096 and 1021, on inputs drawn on the CPU from a fixed seed."""
+    import numpy as np
+
+    w = sc.PackedNet(dec_math, dims, torch.bfloat16, device)
+    rng = np.random.default_rng(20)
+    outs = []
+    for BG in (4096, 1021):
+        def draw(cols):
+            v = rng.standard_normal((BG, cols)).astype(np.float32)
+            return torch.from_numpy(v).to(device).to(torch.bfloat16)
+
+        emb = draw(dims.cond_channels * dims.emb_dim)
+        for i, C in enumerate(dims.cins):
+            outs.append(sc.stage_apply(w, i, draw(dims.seq_len * C), emb))
+        outs.append(sc.final_apply(w, draw(dims.seq_len * dims.block_channels[-1]), emb))
+    return outs
+
+
+def _bf16_decoder_digest(dec_math, dims, device) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in _bf16_decoder_outputs(dec_math, dims, device):
+        h.update(t.view(torch.int16).cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+@pytest.mark.cuda
+def test_bf16_decoder_kernels_are_bitwise_as_before_on_card(cuda, nets):
+    """The bf16 ``stage_kernel`` and ``final_kernel`` (their products on the
+    tensor cores since before the float32 pair joined them) give the same
+    bits as before, at the decoder's widths and a ragged BG."""
+    assert _bf16_decoder_digest(nets["dec_math"], nets["dec_dims"], cuda) == BF16_DECODER_DIGEST
 
 
 def _seeded_ldm(device, seed):
