@@ -34,9 +34,10 @@ block size instead).
 
 The per-step tables stay in plain PyTorch, outside the kernels: the time
 embedding rows ``compute_time_emb`` tiled over the Ce conditioning
-channels, and the per-step coefficient rows. The samplers that draw noise
-(DDPM, churn) take it as an explicit ``[S, BG, L]`` tensor, so tests can
-feed JAX's draws.
+channels, and the per-step coefficient rows. Each sampler builds them under
+``utils.profiling.SAMPLER_TABLES`` (the span ``graspldm.sampler_tables``).
+The samplers that draw noise (DDPM, churn) take it as an explicit
+``[S, BG, L]`` tensor, so tests can feed JAX's draws.
 
 Beside each kernel is its plain PyTorch version with the same rounding
 points: one step each (``ddim_step_plain``, ``dpmpp_step_plain``,
@@ -62,6 +63,7 @@ import torch.nn.functional as F
 from ..cuda_build import KernelCounter, check_launch, on_cuda
 from ..diffusion.elucidated import ElucidatedDiffusion
 from ..diffusion.schedules import DiffusionSchedule
+from ..utils.profiling import SAMPLER_TABLES
 from .stacked_cuda import (
     DTYPE_CODE,
     PackedNet,
@@ -319,7 +321,8 @@ def fused_sample(
         raise ValueError(f"Unknown sampler: {sampler}")
     device = x_T.device
     S = num_inference_steps or schedule.num_train_timesteps
-    embin, trows, coefs = sampler_tables(w, schedule, input_emb, S, sampler, variance_type)
+    with SAMPLER_TABLES.timed():
+        embin, trows, coefs = sampler_tables(w, schedule, input_emb, S, sampler, variance_type)
     if sampler == "ddpm" and noise is None:
         noise = torch.randn((coefs.shape[0],) + tuple(x_T.shape), generator=generator,
                             device=device)
@@ -471,7 +474,8 @@ def fused_sample_dpmpp(
     """
     _in_kernel_attention(w, "fused_sample_dpmpp")
     N = num_sample_steps or ed.num_sample_steps
-    embin, trows, coefs = dpmpp_tables(w, ed, input_emb, N)
+    with SAMPLER_TABLES.timed():
+        embin, trows, coefs = dpmpp_tables(w, ed, input_emb, N)
     x_T = x_T.float().contiguous()
     if not return_trajectory:
         return dpmpp_sampler_apply(w, x_T, embin, trows, coefs, clamp)[:, None, :]
@@ -633,7 +637,8 @@ def fused_sample_churn(
     """
     _in_kernel_attention(w, "fused_sample_churn")
     N = num_sample_steps or ed.num_sample_steps
-    embin, trowsA, trowsB, coefA, coefB = churn_tables(w, ed, input_emb, N)
+    with SAMPLER_TABLES.timed():
+        embin, trowsA, trowsB, coefA, coefB = churn_tables(w, ed, input_emb, N)
     if noise is None:
         noise = torch.randn((N,) + tuple(x_T.shape), generator=generator, device=x_T.device)
     x_T, noise = x_T.float().contiguous(), noise.float().contiguous()

@@ -21,6 +21,10 @@ another thread (a server's worker) opens no span. The spans
 * ``graspldm.ldm_generate`` / ``graspldm.vae_generate``: the whole call;
 * ``graspldm.encode``: the point-cloud encoder (``vae.encode_pc``);
 * ``graspldm.sample``: reverse diffusion (LDM mode only);
+
+  * ``graspldm.sampler_tables``: the sampler's prologue on the host, the
+    time rows and coefficients of every step (``models/cuda_sampler.py``);
+
 * ``graspldm.decode``: the decoder and the postprocess (unnormalise,
   ``tmrp_to_H``, sigmoid), once per decoded state.
 
@@ -29,6 +33,12 @@ The glue between them (``repeat_interleave``, the input embedding, the
 A span is a host range (a ``cpu_op`` in the trace, as an operator is), not a
 user annotation: the CUDA profiler copies a user annotation onto the
 device's timeline as well, where it would read as device work.
+
+:class:`HostTime` counts the calls and host seconds of a stretch whether or
+not a profiler records: :data:`SAMPLER_TABLES` times the sampler's
+prologue (the stretch of ``graspldm.sampler_tables``) for every sampler.
+A reader differences two readings. A blocking copy to the device inside
+the stretch waits for the stream, and that wait is counted too.
 """
 
 from __future__ import annotations
@@ -40,7 +50,8 @@ from typing import Any, Callable
 
 import torch
 
-__all__ = ["timeit", "query_gpu", "device_line", "span", "SPAN_PREFIX"]
+__all__ = ["timeit", "query_gpu", "device_line", "span", "SPAN_PREFIX", "HostTime",
+           "SAMPLER_TABLES"]
 
 SPAN_PREFIX = "graspldm."
 _NO_SPAN = contextlib.nullcontext()
@@ -109,3 +120,23 @@ def span(name: str):
     if not torch.autograd._profiler_enabled():
         return _NO_SPAN
     return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+
+
+class HostTime:
+    """Calls and host seconds of one stretch of the program, summed over the
+    process's life: two ``time.perf_counter`` reads an entry."""
+
+    def __init__(self, name: str):
+        self.name, self.calls, self.seconds = name, 0, 0.0
+
+    @contextlib.contextmanager
+    def timed(self):
+        """The stretch, counted, under the span ``graspldm.<name>``."""
+        t = time.perf_counter()
+        with span(self.name):
+            yield
+        self.seconds += time.perf_counter() - t
+        self.calls += 1
+
+
+SAMPLER_TABLES = HostTime("sampler_tables")
