@@ -96,6 +96,25 @@
 // tensor-core kernel's split is held against (chip_smoke.py and the card
 // tests, through gl_stage_forward_cuda_cores / gl_final_forward_cuda_cores);
 // no main path launches them.
+// Each resblock of the float32 tensor-core bodies runs its GroupNorms as
+// one pass a warp a (row, group) (resnet1d_blocks.cuh: resblock_gn and
+// gn_pass; 6 barriers a resblock where the two passes of each take 8, an
+// evaluation's 119 down to 101; the outputs bitwise the two passes'). Against
+// the two-pass body in one call (H100 80GB HBM3, 700.00 W, the lesser of two
+// turns): the float32 DDIM sampler 159.2 against 163.3 ms at fpc BG 4096
+// and 160.4 against 163.0 at ppc 1024, the float32 DPM++ 50.5 against 51.7
+// and 50.8 against 51.6, the float32 churn sampler 343.8 against 345.3 and
+// 344.7 against 353.9, the float32 decoder pair 3.81 + 1.46 ms either way.
+// Registers 128, spill stores 168 bytes and loads 528 (304 and 844 with two
+// passes: resblock_gn forms the weights' pointers where they are used).
+// bf16 keeps the two passes (TcProducts<T>::kGn): one pass read the bf16
+// DDIM sampler 77.4 against 74.3 ms at fpc and 76.4 against 76.7 at ppc.
+// Every bf16 kernel and the float32 CUDA-core bodies compile to the same
+// SASS as the two-pass resblock. A pair a warp reads ppc's 1024-value
+// groups in 8 of the 16 warps, so two warps a pair (each the same
+// statistics, half the apply) took the ppc sampler from 163.6 to 160.2 ms;
+// the loops unrolled by 4 gain 0.2-0.3 % on the DDIM sampler and nothing
+// on DPM++ (both are variants in tools/kernel_variants.py).
 // wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C

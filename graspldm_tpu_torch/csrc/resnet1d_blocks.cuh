@@ -264,6 +264,7 @@ __device__ inline void conv3(int M, int L, int C, int N, const T* X,
 // tensor cores.
 struct SimtProducts {
   using Div = PlainDiv;
+  static constexpr bool kGn = false;  // GroupNorm in two passes (resblock)
   // the attention's scores S[r][h][l][j] = sum_d q[r,l,h,d] k[r,j,h,d], from
   // q and k in QKV [R][L][3 * kHd]
   template <typename T>
@@ -317,6 +318,58 @@ __device__ inline void group_stats(const T* H, int R, int L, int C, int G, float
   }
 }
 
+// GroupNorm of Hs in one pass, a warp a (row, group) (resblock, the
+// tensor-core bodies): the warp sums the pair's n = L * gs values and their
+// squared deviations in group_stats' order (mean and rstd with its bits),
+// then applies the norm to the same values, into another buffer (a pair's
+// second warp may still be reading Hs): OUT_X == false, the first norm,
+// FiLM and SiLU, D = silu(film(gn(Hs))); true, the output pass D = X =
+// silu(gn(Hs)) + X.
+// One pass and one barrier where group_stats and the apply take two, and
+// the outputs are bitwise the two passes'. The loops unrolled by 4 overlap
+// the reads (ppc's groups are 1024 values, 32 a lane).
+template <bool OUT_X, typename T, typename D>
+__device__ inline void gn_pass(const T* Hs, T* Dst, int R, int L, int C, int G,
+                               const T* __restrict__ g, const T* __restrict__ be,
+                               const float* SS, float ce) {
+  const int gs = C / G, n = L * gs, C2 = 2 * C, pairs = R * G;
+  const int lane = threadIdx.x & 31, nw = blockDim.x >> 5;
+  // warps a pair where there are more warps than pairs (ppc: 8 pairs for 16
+  // warps): each computes the pair's statistics, the same bits, and applies
+  // its share of the values
+  const int split = nw >= 2 * pairs ? nw / pairs : 1;
+  const D gsd(gs);
+  for (int w = threadIdx.x >> 5; w < pairs * split; w += nw) {
+    const int p = w % pairs, part = w / pairs;
+    const int r = p / G, c0 = (p % G) * gs;
+    const T* base = Hs + (size_t)r * L * C + c0;
+    float s = 0.f;
+#pragma unroll 4
+    for (int i = lane; i < n; i += 32) s += to_f(base[gsd.div(i) * C + gsd.mod(i)]);
+    const float mu = warp_sum(s) / n;
+    float q = 0.f;
+#pragma unroll 4
+    for (int i = lane; i < n; i += 32) {
+      const float d = to_f(base[gsd.div(i) * C + gsd.mod(i)]) - mu;
+      q += d * d;
+    }
+    const float rs = rsqrtf(warp_sum(q) / n + 1e-5f);
+#pragma unroll 4
+    for (int i = lane + 32 * part; i < n; i += 32 * split) {
+      const int cg = gsd.mod(i), c = c0 + cg;
+      const size_t idx = (size_t)r * L * C + c0 + gsd.div(i) * C + cg;
+      if (OUT_X) {
+        const float y = (to_f(Hs[idx]) - mu) * rs * ldw(g + c) + ldw(be + c);
+        Dst[idx] = from_f<T>(silu(y) + to_f(Dst[idx]));
+      } else {
+        float y = (to_f(Hs[idx]) - mu) * rs * ldw(g + c) + ldw(be + c);
+        y = y * (SS[r * C2 + c] + ce) + SS[r * C2 + C + c];
+        Dst[idx] = from_f<T>(silu(y));
+      }
+    }
+  }
+}
+
 // per-token channel LayerNorm (gain only, eps 1e-5): one warp per token.
 // resid == nullptr: DST = LN(SRC) * g. Otherwise DST = resid + LN(SRC) * g.
 template <typename T>
@@ -343,13 +396,58 @@ __device__ inline void layer_norm_tokens(const T* SRC, T* DST, const T* resid, i
 // network pieces (each ends with the block synchronised)
 // ---------------------------------------------------------------------------
 
+// resblock with each GroupNorm one pass (gn_pass; P::kGn, the float32
+// tensor-core bodies): 6 barriers where the two passes of each take 8, with
+// the same bits. The weights' pointers are formed where they are used: the
+// float32 sampler kernels run at their 128 registers, and what stays live
+// through a product's k-loop there is spilled (tc_blocks.cuh says what that
+// cost).
+template <typename T, typename P>
+__device__ inline void resblock_gn(const Bufs<T>& b, T* X, int R, int L, int C, int E, int Ce,
+                                   int G, const T* __restrict__ Wf, const long long* sl,
+                                   const P& prod) {
+  const int M = R * L, C2 = 2 * C;
+  const float ce = (float)Ce;
+  float* SS = b.SS;
+  T* H = b.H;
+  T* H2 = b.H2;
+  using D = typename P::Div;
+
+  {
+    const T* mlpB = Wf + sl[S_MLPB];
+    gemm<1>(R, C2, E, b.ESUM, E, Wf + sl[S_MLPW],
+            [&](int r, int n, float acc) { SS[r * C2 + n] = acc + ce * ldw(mlpB + n); });
+  }
+  {
+    const T* b1 = Wf + sl[S_B1];
+    prod.conv3(0, M, L, C, C, X, Wf + sl[S_W1],
+               [&](int m, int n, float acc) { H[m * C + n] = from_f<T>(acc + ldw(b1 + n)); });
+  }
+  __syncthreads();
+  gn_pass<false, T, D>(H, H2, R, L, C, G, Wf + sl[S_G1], Wf + sl[S_BE1], SS, ce);
+  __syncthreads();
+  {
+    const T* b2 = Wf + sl[S_B2];
+    prod.conv3(1, M, L, C, C, H2, Wf + sl[S_W2],
+               [&](int m, int n, float acc) { H[m * C + n] = from_f<T>(acc + ldw(b2 + n)); });
+  }
+  __syncthreads();
+  gn_pass<true, T, D>(H, X, R, L, C, G, Wf + sl[S_G2], Wf + sl[S_BE2], SS, ce);
+  __syncthreads();
+}
+
 // ResnetBlock1D at width C on X (in place). ESUM [R][E] is the fp32 sum of
 // the Ce conditioning-channel embeddings (sum_e emb_e @ W == sum_e (emb_e @
-// W): the multi-channel FiLM needs only the sum).
+// W): the multi-channel FiLM needs only the sum). Where P::kGn, it runs as
+// resblock_gn.
 template <typename T, typename P = SimtProducts>
 __device__ inline void resblock(const Bufs<T>& b, T* X, int R, int L, int C, int E, int Ce,
                                 int G, const T* __restrict__ Wf, const long long* sl,
                                 const P& prod = P()) {
+  if constexpr (P::kGn) {  // each GroupNorm one pass
+    resblock_gn(b, X, R, L, C, E, Ce, G, Wf, sl, prod);
+    return;
+  }
   const T* mlpW = Wf + sl[S_MLPW];
   const T* mlpB = Wf + sl[S_MLPB];
   const T* w1 = Wf + sl[S_W1];

@@ -80,6 +80,20 @@
 // softmaxes 8 %, LayerNorms 7 %, the rest below 4 % each. Deeper B
 // prefetch did not help; 4 m-tiles a warp (each weight byte read once a
 // block) spilled at 128 registers. wgmma and TMA are later work.
+// Where a float32 sampler step goes (ddim_sampler_kernel<float>, fpc BG
+// 4096, block 0, clock64 at each barrier; 0.80 M cycles an evaluation):
+// the products' unit loops 50 % (warp 0: 0.40 M the staged ones, 44 K the
+// value-by-value ones), their staging copies 10 %, GroupNorm 16 % (the two
+// statistics passes 34-36 K each, the normalise pass 31 K, the output pass
+// 26 K), the attention's CUDA-core passes 12 %, the head 3 %. The float32
+// body runs at the 128-register cap of 512 threads, and what stays live
+// through a product's k-loop spills into it: every design that kept more
+// there (GroupNorm statistics in the convs' epilogues and its apply in the
+// next product's staging, in five forms) read 200-292 ms against 163-164,
+// its unit loops 0.54-0.70 M cycles against 0.40 M; tc_mma out of line
+// reads 325 ms even in the two-pass body. What gained is float32 GroupNorm
+// as one warp pass a group (resnet1d_blocks.cuh: gn_pass), which adds no
+// long-lived value (kernels.cu gives its times).
 //
 // Decisions, each timed against the sources without it by
 // tools/kernel_variants.py (H100 80GB HBM3, 700.00 W; full_kernel<float> at
@@ -405,6 +419,9 @@ __device__ inline void tc_product(int M, int L, int taps, int Ck, int lda, int N
 template <typename T>
 struct TcProducts {
   using Div = FastDiv;
+  // GroupNorm in one pass (resblock_gn) in float32; bf16 keeps the two
+  // passes, which read faster there (kernels.cu)
+  static constexpr bool kGn = sizeof(T) == 4;
   const T* Wf;
   const long long* slots;
   TcScratch s[2];

@@ -38,16 +38,29 @@ decode's 4 ``stage_kernel`` launches (BG = 4096) and ``final_kernel`` (BG =
 against ``stage_plain`` / ``final_plain`` (the stages' in float32 only),
 in float32 beside the CUDA-core control's error and time.
 
+``--parent DIR`` builds another tree's ``csrc`` (the parent commit's, say)
+as the variant ``parent``: it is timed beside the others, and each
+variant's outputs of the tensor-core kernels at the flagships' shapes and
+of the float32 CUDA-core control are held bitwise against its own
+(``bitwise``): "as built", "GroupNorm in two passes" (the statistics
+and the apply apart again) and "bf16 GroupNorm in one pass" must all be,
+as the one pass keeps group_stats' order.
+
 ``--staging`` builds the sources of the float32 tensor-core sampler kernels
 (the DPM++ sampler, the churn pair, the DDIM pair) and of the decoder's
 ``stage_kernel`` and ``final_kernel`` once more with a counter of the path each
 tensor-core product of block 0 takes (its A staged in the dead buffers;
 read value by value for a width off the 16-wide k-step; or value by value
-for want of room, which must read 0) and prints the counts of one launch of
+for want of room, which must read 0) and of block 0's resblocks by how they
+run GroupNorm (one pass or two: every float32 resblock must take one, a
+bf16 one two) and prints the counts of one launch of
 each at the fpc and ppc denoisers (the decoder's: at the decoder, the
 stages in float32, the final block in both dtypes).
 
-    python -m graspldm_tpu_torch.tools.kernel_variants [--kernels K ...] [--staging] [VARIANT ...]
+    python -m graspldm_tpu_torch.tools.kernel_variants [VARIANT ...] [--kernels K ...]
+        [--staging] [--parent DIR]
+
+(the variants first: ``--kernels`` takes every name after it).
 
 Needs a card and ``nvcc``; it raises without them.
 """
@@ -60,6 +73,7 @@ import re
 import shutil
 import subprocess
 import types
+from pathlib import Path
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -77,7 +91,7 @@ from ..utils.profiling import device_line, timeit
 
 __all__ = ["VARIANTS", "patched_sources", "main"]
 
-_TC, _SB, _K = "tc_blocks.cuh", "sampler_body.cuh", "kernels.cu"
+_TC, _SB, _K, _RB = "tc_blocks.cuh", "sampler_body.cuh", "kernels.cu", "resnet1d_blocks.cuh"
 _BF16_CHURN_TC = (_SB, "template <typename T> constexpr bool kChurnTc = sizeof(T) == 4;",
                   "template <typename T> constexpr bool kChurnTc = true;")
 # each bf16 mma into a zeroed accumulator, its sum added to the running one
@@ -98,9 +112,34 @@ _FRESH = (_TC, """            mma_bf16(acc[i][2 * q], a[0], bq[d][0][q].x, bq[d]
               mma_bf16(acc[i][2 * q + 1], a[0], bq[d][0][q].z, bq[d][0][q].w);
             }
 """)
+# the float32 tensor-core resblocks' GroupNorms back in two passes each,
+# group_stats and then the apply (resblock's own code): the same outputs
+# bit for bit, as the one pass keeps group_stats' order
+_GN_TWO_PASSES = [
+    (_RB, "  if constexpr (P::kGn) {  // each GroupNorm one pass\n", "  if constexpr (false) {\n"),
+]
+# gn_pass's three loops not unrolled: each read waits on the one before
+_GN_ROLLED = [
+    (_RB, "#pragma unroll 4\n    for (int i = lane; i < n; i += 32) s += ",
+     "    for (int i = lane; i < n; i += 32) s += "),
+    (_RB, "#pragma unroll 4\n    for (int i = lane; i < n; i += 32) {\n      const float d",
+     "    for (int i = lane; i < n; i += 32) {\n      const float d"),
+    (_RB, "#pragma unroll 4\n    for (int i = lane + 32 * part; i < n; i += 32 * split) {",
+     "    for (int i = lane + 32 * part; i < n; i += 32 * split) {"),
+]
+# a pair a warp, the others idle where there are more warps than pairs
+_GN_PAIR_A_WARP = [
+    (_RB, "  const int split = nw >= 2 * pairs ? nw / pairs : 1;",
+     "  const int split = 1;"),
+]
 # name -> [(file, text, replacement)]: each undoes one decision
 VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
     "as built": [],
+    "GroupNorm in two passes": _GN_TWO_PASSES,
+    "GroupNorm pass loops rolled": _GN_ROLLED,
+    "GroupNorm pass a warp a pair": _GN_PAIR_A_WARP,
+    "bf16 GroupNorm in one pass": [
+        (_TC, "  static constexpr bool kGn = sizeof(T) == 4;", "  static constexpr bool kGn = true;")],
     "fp32 fpc at 9 rows": [(_SB, "  if (R * L > 32) R -= (R * L % 32) / L;\n", "")],
     "bf16: B 1 k-step ahead": [(_TC, "constexpr int kTcDepth = 2;", "constexpr int kTcDepth = 1;")],
     "split: B 2 k-steps ahead": [
@@ -188,17 +227,21 @@ _STAGED = {"dpmpp_sampler_kernel": ("dpmpp_sampler.cu", "gl_dpmpp_sample"),
            "ddim_step_kernel": ("step_samplers.cu", "gl_ddim_step"),
            "stage_kernel": ("kernels.cu", "gl_stage_forward"),
            "final_kernel": ("kernels.cu", "gl_final_forward")}
-# block 0's tensor-core products by path: staged, off the k-step, no room
+# block 0's tensor-core products by path (staged, off the k-step, no room)
+# and its resblocks by how they run GroupNorm (one pass, two passes)
 _STAGING = [
-    (_TC, "namespace gl {\n", "namespace gl {\n__device__ unsigned long long gl_staged[3];\n"),
+    (_RB, "namespace gl {\n", "namespace gl {\n__device__ unsigned long long gl_staged[5];\n"),
     (_TC, "  if (!fast) {\n",
      "  if (blockIdx.x == 0 && threadIdx.x == 0)\n"
      "    atomicAdd(&gl_staged[fast ? 0 : ((Ck & 15) || (lda & 7)) ? 1 : 2], 1ull);\n"
      "  if (!fast) {\n"),
+    (_RB, "  if constexpr (P::kGn) {  // each GroupNorm one pass\n",
+     "  if (blockIdx.x == 0 && threadIdx.x == 0) atomicAdd(&gl_staged[P::kGn ? 3 : 4], 1ull);\n"
+     "  if constexpr (P::kGn) {  // each GroupNorm one pass\n"),
     (_TC, "}  // namespace gl\n", """}  // namespace gl
 
 extern "C" int gl_staging_counts(unsigned long long* out) {
-  const unsigned long long zero[3] = {0ull, 0ull, 0ull};
+  const unsigned long long zero[5] = {0ull, 0ull, 0ull, 0ull, 0ull};
   cudaError_t e = cudaMemcpyFromSymbol(out, gl::gl_staged, sizeof(zero));
   return (int)(e != cudaSuccess ? e : cudaMemcpyToSymbol(gl::gl_staged, zero, sizeof(zero)));
 }
@@ -225,18 +268,21 @@ _PTXAS = re.compile(r"Function properties for \w*?\d+([a-z_]+_kernel)I(13__nv_bf
                     r"[^\n]*Used (\d+) registers")
 
 
-def _build(variants: Dict[str, List[Tuple[str, str, str]]], sources,
+def _build(variants: Dict[str, object], sources,
            root: str = "variants") -> Dict[str, types.SimpleNamespace]:
-    """Each variant's (name -> patches) libraries of ``sources``: its C
-    entries by name."""
+    """Each variant's (name -> patches, or another ``csrc`` directory as a
+    ``Path``) libraries of ``sources``: its C entries by name."""
     root = BUILD_DIR / root
     shutil.rmtree(root, ignore_errors=True)
     procs = []
     for i, (name, patches) in enumerate(variants.items()):
         d = root / str(i)
-        shutil.copytree(CSRC, d)
-        for f, text in patched_sources(patches).items():
-            (d / f).write_text(text)
+        if isinstance(patches, Path):
+            shutil.copytree(patches, d)
+        else:
+            shutil.copytree(CSRC, d)
+            for f, text in patched_sources(patches).items():
+                (d / f).write_text(text)
         for src in sources:
             cmd = [nvcc_path(), *_FLAGS, "-o", str(d / f"{src}.so"), str(d / src)]
             procs.append((name, d, src, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -358,20 +404,27 @@ def staging(dev, gen, sched) -> None:
     ns = load_library()
     own = {entry: getattr(ns, entry) for _, entry in _STAGED.values()}
 
-    def count(name: str, what: str, evals: int, call: Callable) -> None:
+    def count(name: str, what: str, evals: int, call: Callable, resblocks: int) -> None:
+        """``resblocks``: those of one launch, each one pass in float32 and two
+        in bf16."""
         read = reads[_STAGED[name][0]]
-        got = (ctypes.c_ulonglong * 3)()
+        got = (ctypes.c_ulonglong * 5)()
         for run in (False, True):  # the first read clears what came before
             if run:
                 call()
             torch.cuda.synchronize()
             if read(got) != 0:
                 raise RuntimeError("gl_staging_counts failed")
+        want = [resblocks, 0] if what.startswith("fp32") else [0, resblocks]
         print(f"staging {name} {what}, block 0 over {evals} evaluation(s): {got[0]} staged, "
               f"{got[1]} value by value (width off the k-step), {got[2]} value by value (no "
-              f"room)", flush=True)
+              f"room); resblocks {got[3]} with GroupNorm in one pass, {got[4]} in two",
+              flush=True)
         if got[2]:
             raise AssertionError(f"{name}: {got[2]} products found no room")
+        if [got[3], got[4]] != want:
+            raise AssertionError(f"{name}: resblocks in one pass / two {got[3]} / {got[4]}, "
+                                 f"not {want}")
 
     try:
         for entry in own:
@@ -394,19 +447,73 @@ def staging(dev, gen, sched) -> None:
                                                                    coefs[0])),
             }
             for name, (evals, call) in calls.items():
-                count(name, f"fp32 {label} L={dims.seq_len} BG={bg}", evals, call)
+                count(name, f"fp32 {label} L={dims.seq_len} BG={bg}", evals, call,
+                      evals * (2 * len(dims.block_channels) + 1))
         for dt in (torch.bfloat16, torch.float32):
             wd, xs, embd = _decoder_operands(dev, gen, dt)
             tag = "fp32" if dt == torch.float32 else "bf16"
             if dt == torch.float32:
                 for i in range(len(xs) - 1):
                     count("stage_kernel", f"fp32 decoder stage {i} L=16 BG=4096", 1,
-                          lambda: sc.stage_apply(wd, i, xs[i], embd))
+                          lambda: sc.stage_apply(wd, i, xs[i], embd), 2)
             count("final_kernel", f"{tag} decoder L=16 BG=4096", 1,
-                  lambda: sc.final_apply(wd, xs[-1], embd))
+                  lambda: sc.final_apply(wd, xs[-1], embd), 1)
     finally:
         for entry, fn in own.items():
             setattr(ns, entry, fn)
+
+
+def bitwise(libs, dev, gen, sched) -> None:
+    """Print, for the tensor-core kernels at the flagships' shapes (fpc BG
+    4096, ppc 1024; the decoder's 4 stages and final block at 4096) and the
+    float32 CUDA-core control, which variants' outputs are bitwise equal to
+    the ``parent`` variant's (``--parent``) on the same operands."""
+    def same(entry: str, call: Callable, label: str) -> None:
+        ns = load_library()
+        own = getattr(ns, entry)
+        outs = {}
+        try:
+            for name, lib in libs.items():
+                setattr(ns, entry, getattr(lib, entry))
+                outs[name] = call().clone()
+                torch.cuda.synchronize()
+        finally:
+            setattr(ns, entry, own)
+        ref = outs.pop("parent")
+        print(f"bitwise vs parent, {label}: "
+              + " | ".join(f"{n} {torch.equal(o, ref)}" for n, o in outs.items()), flush=True)
+
+    for label, cfg, bg in (("fpc", {}, 4096), ("ppc", _PPC, 1024)):
+        _, ddm, ed = build_flagship(FlagshipConfig(elucidated=True, **cfg),
+                                    generator=torch.Generator().manual_seed(0), device=dev)
+        dims = _denoiser_dims(ddm)
+        math_w = pack_math_weights(ddm, dims)
+        for dt in (torch.float32, torch.bfloat16):
+            w = sc.PackedNet(math_w, dims, dt, dev)
+            tag = f"{'fp32' if dt == torch.float32 else 'bf16'} {label} L={dims.seq_len} BG={bg}"
+            x, emb = _full_operands(w, bg, gen, dev)
+            same("gl_full_forward", lambda: sc.full_apply(w, x, emb), f"full_kernel {tag}")
+            x_T, tables, _ = _churn_operands(w, ed, bg, gen, dev, 2)
+            input_emb = tables[0].reshape(bg, dims.cond_channels, -1)
+            ddim = _ddim_tables(w, sched, input_emb)
+            same("gl_ddim_sample", lambda: cs.sampler_apply(w, x_T, *ddim),
+                 f"ddim_sampler_kernel {tag} x 100 steps")
+            if dt == torch.float32:
+                dp = cs.dpmpp_tables(w, ed, input_emb, 32)
+                same("gl_dpmpp_sample", lambda: cs.dpmpp_sampler_apply(w, x_T, *dp),
+                     f"dpmpp_sampler_kernel {tag} x 32 steps")
+    for dt in (torch.float32, torch.bfloat16):
+        wd, xs, embd = _decoder_operands(dev, gen, dt)
+        tag = f"{'fp32' if dt == torch.float32 else 'bf16'} decoder L=16 BG=4096"
+        for cores in (False, True) if dt == torch.float32 else (False,):
+            what = ", CUDA-core control" if cores else ""
+            same("gl_stage_forward" + ("_cuda_cores" if cores else ""),
+                 lambda: torch.cat([sc.stage_apply(wd, i, xs[i], embd, cuda_cores=cores)
+                                    .reshape(-1) for i in range(len(xs) - 1)]),
+                 f"stage_kernel {tag}, 4 launches{what}")
+            same("gl_final_forward" + ("_cuda_cores" if cores else ""),
+                 lambda: sc.final_apply(wd, xs[-1], embd, cuda_cores=cores),
+                 f"final_kernel {tag}{what}")
 
 
 def _decoder_operands(dev, gen, dtype=torch.bfloat16):
@@ -459,10 +566,17 @@ def main(argv=None) -> None:
                    help="the timed calls (default: all)")
     p.add_argument("--staging", action="store_true",
                    help="also count the tensor-core kernels' products by path")
+    p.add_argument("--parent", type=Path, default=None,
+                   help="another tree's csrc directory, timed as the variant 'parent'; each "
+                        "variant's outputs are held bitwise against it")
     args = p.parse_args(argv)
     names = args.variants or list(VARIANTS)
     if "as built" not in names:
         names = ["as built"] + names
+    variants: Dict[str, object] = {n: VARIANTS[n] for n in names}
+    if args.parent is not None:
+        names = ["parent"] + names
+        variants = {"parent": args.parent.resolve(), **variants}
     kernels = set(args.kernels)
     dev = resolve_device()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -472,8 +586,12 @@ def main(argv=None) -> None:
     sched = DiffusionSchedule.create(num_steps=1000, beta_start=5e-5, beta_end=1e-3)
     if args.staging:
         staging(dev, gen, sched)
-    sources = sorted({f for k in kernels for f in _BUILT[k]})
-    libs = _build({n: VARIANTS[n] for n in names}, sources)
+    sources = {f for k in kernels for f in _BUILT[k]}
+    if args.parent is not None:
+        sources |= {"kernels.cu", "full_net.cu", "dpmpp_sampler.cu"}
+    libs = _build({n: variants[n] for n in names}, sorted(sources))
+    if args.parent is not None:
+        bitwise(libs, dev, gen, sched)
 
     def report(label, ms, err=None, chain=None, what="err"):
         parts = [f"{n} {ms[n]:.3f} ms" + (f" ({what} {err[n]:.2e})" if err else "")
@@ -492,7 +610,8 @@ def main(argv=None) -> None:
             w = sc.PackedNet(math_w, dims, dt, dev)
             x, emb = _full_operands(w, bg, gen, dev)
             ref = sc.full_plain(w, x, emb).float()
-            chain = (_chain(w, x, emb).float() - ref).abs().max().item()
+            # float32: the CUDA-core control's chain; bf16 has none, its own chain
+            chain = (_chain(w, x, emb, dt == torch.float32).float() - ref).abs().max().item()
             top = max(1.0, ref.abs().max().item())
             call = lambda: sc.full_apply(w, x, emb)  # noqa: E731
             report(f"full_kernel {'fp32' if dt == torch.float32 else 'bf16'} L={dims.seq_len} "
