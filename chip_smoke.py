@@ -393,17 +393,10 @@ def cuda_ms(fn, reps: int) -> float:
 
 
 def counters():
-    from graspldm_tpu_torch.models import cuda_sampler as cs
-    from graspldm_tpu_torch.models import stacked_cuda as sc
-    from graspldm_tpu_torch.ops import cuda_fps
+    """Every kernel's launch handle."""
+    from graspldm_tpu_torch.cuda_build import handles
 
-    tools = mb_tools()
-    return (sc.STAGE_KERNEL, sc.FINAL_KERNEL, sc.STAGE_KERNEL_CUDA_CORES,
-            sc.FINAL_KERNEL_CUDA_CORES, sc.FULL_KERNEL, sc.HYBRID_STAGE_KERNEL,
-            sc.HYBRID_FINAL_KERNEL, cs.SAMPLER_KERNEL,
-            cs.DPMPP_KERNEL, cs.CHURN_KERNEL, cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
-            cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL, tools["mm"].MM_CHAIN_KERNEL,
-            tools["silu"].SILU_CHAIN_KERNEL, tools["repeat"].BCAST_CHAIN_KERNEL)
+    return tuple(handles().values())
 
 
 def counts() -> dict:

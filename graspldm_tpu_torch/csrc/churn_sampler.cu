@@ -28,11 +28,10 @@
 // TPU kernel keeps the block's noise in VMEM; its 16 B per row-step are
 // nothing beside the step's work).
 //
-// The network (kChurnTc, kChurnThreads in sampler_body.cuh), both dtypes at
-// 512 threads (kTcThreads: 128 registers a thread) and tc_rows_per_block's
-// rows. Times and errors from tools/kernel_variants.py (H100 80GB HBM3,
-// 700.00 W; fpc BG = 4096 / ppc BG = 1024, 100 steps), each against the
-// sources with the decision undone:
+// The network (kChurnTc in sampler_body.cuh), both dtypes at 512 threads
+// (kTcThreads: 128 registers a thread) and tc_rows_per_block's rows. Times
+// and errors on the H100 80GB HBM3 at 700.00 W (fpc BG = 4096 / ppc BG =
+// 1024, 100 steps), each against the sources with the decision undone:
 //   * float32: net_step<float, true>, full_kernel<float>'s body: the convs,
 //     projections and wqkv / wo as the six exact bf16 products of the
 //     weights' and the activations' three-part split. 351 / 359 ms (the
@@ -80,7 +79,7 @@ using namespace gl;
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(kChurnThreads<T>)
+__global__ void __launch_bounds__(kTcThreads)
 churn_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embin,
                      const float* __restrict__ trowsA, const float* __restrict__ trowsB,
                      const float* __restrict__ coefA, const float* __restrict__ coefB,
@@ -137,11 +136,9 @@ int launch_churn(const float* xT, const float* embin, const float* trowsA, const
                  const float* coefA, const float* coefB, const float* noise, const void* w,
                  const long long* net, float* out, int BG, int S, int L, int E, int Ce, int G,
                  int cmax, int clamp, cudaStream_t st) {
-  return launch_tc_rows<T, kChurnThreads<T>>(churn_sampler_kernel<T>,
-                                             sampler_plan(L, cmax, E, Ce, G, 4), L, BG, st, xT,
-                                             embin, trowsA, trowsB, coefA, coefB, noise,
-                                             (const T*)w, net, out, BG, S, L, E, Ce, G, cmax,
-                                             clamp);
+  return launch_tc_rows<T>(churn_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 4), L, BG,
+                           st, xT, embin, trowsA, trowsB, coefA, coefB, noise, (const T*)w, net,
+                           out, BG, S, L, E, Ce, G, cmax, clamp);
 }
 
 }  // namespace

@@ -16,11 +16,10 @@
 // weights stream through L1/L2. The only device-memory traffic is x_T,
 // embin and the tables in, x_0 out, and the weights.
 //
-// The network (kDpmppTc, kDpmppThreads in sampler_body.cuh), both dtypes at
-// 512 threads (kTcThreads) and tc_rows_per_block's rows. Times and errors
-// from tools/kernel_variants.py (H100 80GB HBM3, 700.00 W; fpc BG = 4096 /
-// ppc BG = 1024, 32 steps), each against the sources with the decision
-// undone:
+// The network (kDpmppTc in sampler_body.cuh), both dtypes at 512 threads
+// (kTcThreads) and tc_rows_per_block's rows. Times and errors on the H100
+// 80GB HBM3 at 700.00 W (fpc BG = 4096 / ppc BG = 1024, 32 steps), each
+// against the sources with the decision undone:
 //   * float32: net_step<float, true>, the float32 DDIM sampler's body (the
 //     exact bf16 split on the tensor cores): 52.1 / 52.0 ms (on the CUDA
 //     cores at 256 threads: 137.2 / 106.6, chip_smoke.py). 8 rows a block
@@ -52,7 +51,7 @@ using namespace gl;
 namespace {
 
 template <typename T>
-__global__ void __launch_bounds__(kDpmppThreads<T>)
+__global__ void __launch_bounds__(kTcThreads)
 dpmpp_sampler_kernel(const float* __restrict__ xT, const float* __restrict__ embin,
                      const float* __restrict__ trows, const float* __restrict__ coefs,
                      const T* __restrict__ Wf, const long long* __restrict__ net,
@@ -89,10 +88,9 @@ template <typename T>
 int launch_dpmpp(const float* xT, const float* embin, const float* trows, const float* coefs,
                  const void* w, const long long* net, float* out, int BG, int S, int L, int E,
                  int Ce, int G, int cmax, int clamp, cudaStream_t st) {
-  return launch_tc_rows<T, kDpmppThreads<T>>(dpmpp_sampler_kernel<T>,
-                                             sampler_plan(L, cmax, E, Ce, G, 2), L, BG, st, xT,
-                                             embin, trows, coefs, (const T*)w, net, out, BG, S,
-                                             L, E, Ce, G, cmax, clamp);
+  return launch_tc_rows<T>(dpmpp_sampler_kernel<T>, sampler_plan(L, cmax, E, Ce, G, 2), L, BG,
+                           st, xT, embin, trows, coefs, (const T*)w, net, out, BG, S, L, E, Ce,
+                           G, cmax, clamp);
 }
 
 }  // namespace

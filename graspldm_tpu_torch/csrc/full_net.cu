@@ -41,7 +41,7 @@
 // buffer holds at Ck = 256 (the final resblock): the parts that do not fit
 // go to the second dead buffer of the piece (tc_blocks.cuh,
 // piece_products), so every k-step reads all three parts and each weight
-// part once. Eight rows against nine (tools/kernel_variants.py, H100 80GB
+// part once. Eight rows against nine (the sources with 9 rows, H100 80GB
 // HBM3, 700.00 W): 2.91 ms against 3.36 at the class CFG's fpc BG = 8192,
 // 1.45 against 1.92 at 4096 (ppc fits 2 rows, 32 tokens, either way). The
 // other decisions of the body, with their ms, are in tc_blocks.cuh.

@@ -40,7 +40,7 @@
 // BG = 1024 take 163.3 / 162.9 ms (on the CUDA cores at 256 threads:
 // 429.0 / 332.4, chip_smoke.py); its error against sampler_plain reads
 // 1.7e-6 / 1.3e-6. Against the sources with each decision undone
-// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W): 9 rows at fpc
+// (H100 80GB HBM3, 700.00 W): 9 rows at fpc
 // 214.8 ms; the tensor-core body at 256 threads (its 8 warps, up to 255
 // registers: 235 and no spill) 168.1 / 164.4, and 109.8 / 108.2 against
 // 74.9 / 77.2 for the bf16 sampler; net_step not inlined 230.0 / 245.0.
@@ -59,7 +59,7 @@
 // warp). At BG = 4096 it takes 0.766 ms, 0.184 at 1021 (on the CUDA cores
 // at 256 threads: 4.93; the bound 0.052 ms, bf16 peak), 100 registers, no
 // spill, both convs staged (--staging). Against the sources with each
-// decision undone (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W):
+// decision undone (H100 80GB HBM3, 700.00 W):
 // final_plan with staging room in OUT, 6 rows (M = 96, 3 units a warp;
 // 683 blocks in 6 waves of 132 where 4 rows take 1024 in 8), 0.803 /
 // 0.258 ms; final_plan's 8 rows with no room, A read value by value,
@@ -86,8 +86,8 @@
 // 17.73 and 20.01): stage 3 and the final block, which carry 81 % of the
 // FLOPs, take 63 % of the time. Errors against stage_plain / final_plain read 1.1-2.0 x
 // the CUDA-core instances' on the same operands (BG = 4096 and 1021).
-// (H100 80GB HBM3, 700.00 W, CUDA events; the 4096-row readings by
-// tools/kernel_variants.py.)
+// (H100 80GB HBM3, 700.00 W, CUDA events; the 4096-row readings against
+// the sources with each decision undone, in one call.)
 // stage_kernel<float, false> and final_kernel<float, false> keep the
 // CUDA-core body (resnet1d_blocks.cuh: one vector load of a weight row
 // reused over a 4-token register tile, fp32 FMAs; 256 threads,
@@ -114,7 +114,7 @@
 // groups in 8 of the 16 warps, so two warps a pair (each the same
 // statistics, half the apply) took the ppc sampler from 163.6 to 160.2 ms;
 // the loops unrolled by 4 gain 0.2-0.3 % on the DDIM sampler and nothing
-// on DPM++ (both are variants in tools/kernel_variants.py).
+// on DPM++ (each against the sources without it, in one call).
 // wgmma and TMA are later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C

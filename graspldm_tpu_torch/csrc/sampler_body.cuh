@@ -16,9 +16,11 @@
 // float32 (kDdimStepTc), the float32 churn_sampler_kernel and
 // churn_step_kernel (kChurnTc) and the float32 dpmpp_sampler_kernel
 // (kDpmppTc); the float32 instances through the exact bf16 split. The
-// bf16 churn kernels and the bf16 dpmpp_sampler_kernel run
-// resnet1d_blocks.cuh's CUDA-core body at 512 threads, dpmpp_step_kernel
-// at 256.
+// bf16 churn kernels, the bf16 ddim_step_kernel and the bf16
+// dpmpp_sampler_kernel run resnet1d_blocks.cuh's CUDA-core body, also at
+// kTcThreads; dpmpp_step_kernel runs it at 256. Every kernel that runs
+// net_step in one of its dtypes on the tensor cores launches kTcThreads
+// threads and tc_rows_per_block's rows in both (launch_tc_rows).
 #pragma once
 
 #include "tc_blocks.cuh"
@@ -83,25 +85,19 @@ int launch_tc_rows(Kernel kernel, const Plan& p, int L, int BG, cudaStream_t st,
 
 // The churn kernels (churn_sampler.cu, step_samplers.cu): the network on
 // the tensor cores in float32 (through the exact bf16 split) and on the
-// CUDA cores in bf16 (churn_sampler.cu says why), 512 threads in both
-// dtypes, tc_rows_per_block's rows
+// CUDA cores in bf16 (churn_sampler.cu says why)
 template <typename T> constexpr bool kChurnTc = sizeof(T) == 4;
-template <typename T> constexpr int kChurnThreads = kTcThreads;
 
 // ddim_step_kernel (step_samplers.cu): the network on the tensor cores in
 // float32 (through the exact bf16 split), the network of its
 // whole-trajectory twin ddim_sampler_kernel<float>, and on the CUDA cores in
-// bf16 (step_samplers.cu says why), 512 threads in both dtypes,
-// tc_rows_per_block's rows
+// bf16 (step_samplers.cu says why)
 template <typename T> constexpr bool kDdimStepTc = sizeof(T) == 4;
-template <typename T> constexpr int kDdimStepThreads = kTcThreads;
 
 // dpmpp_sampler_kernel (dpmpp_sampler.cu): the network on the tensor cores
 // in float32 (through the exact bf16 split) and on the CUDA cores in bf16
-// (dpmpp_sampler.cu says why), 512 threads in both dtypes,
-// tc_rows_per_block's rows
+// (dpmpp_sampler.cu says why)
 template <typename T> constexpr bool kDpmppTc = sizeof(T) == 4;
-template <typename T> constexpr int kDpmppThreads = kTcThreads;
 
 // Load the block's rows of x_T into the first carry vector b.XC[0, R*L)
 // and of the conditioning embedding into b.EMBIN; rows past BG read 0.
@@ -124,7 +120,7 @@ __device__ inline void load_sampler_rows(const Bufs<T>& b, const float* __restri
 // net_step. net_step reads n_st before its barrier and hands it in: read
 // after it, inside net_body, the float32 DDIM sampler (then on the CUDA
 // cores) took 462.2 ms against 431.1 at fpc BG = 4096
-// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W).
+// (H100 80GB HBM3, 700.00 W).
 template <typename T, bool TC, typename Store>
 __device__ __forceinline__ void net_body(const Bufs<T>& b, int n_st, int R, int L, int E, int Ce,
                                          int G, const T* __restrict__ Wf,
@@ -167,7 +163,7 @@ __device__ __forceinline__ void net_body(const Bufs<T>& b, int n_st, int R, int 
 // and legs, read 471 ms against 351 at fpc BG = 4096 (ppc 1024: 504
 // against 359), and ddim_sampler_kernel<float> 230.0 against 163.3 (ppc:
 // 245.0 against 162.9), though its spill stores fall from 304 bytes to 60
-// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W); the bf16 DDIM
+// (H100 80GB HBM3, 700.00 W); the bf16 DDIM
 // sampler reads the same either way.
 template <typename T, bool TC = false>
 __device__ __forceinline__ const float* net_step(const Bufs<T>& b, const float* src, float scale,

@@ -46,7 +46,7 @@
 // BG = 4096 / ppc BG = 1024
 // (bf16 at 256 threads: 6.30 / 6.71); churn_sampler.cu gives the decisions.
 // ddim_step_kernel, against the sources with each decision undone
-// (tools/kernel_variants.py, H100 80GB HBM3, 700.00 W; step 50 of 100, the
+// (H100 80GB HBM3, 700.00 W; step 50 of 100, the
 // operands of chip_smoke.py's step-kernel phase):
 //   * float32: ddim_sampler_kernel<float>'s body and rows (kernels.cu), so
 //     its launches are bitwise that kernel's steps: 1.523 / 1.555 ms (on
@@ -86,7 +86,7 @@ namespace {
 //   eps = net(x);  x0 = clip(c0*x - c1*eps)
 //   ddim: out = c2*x + c3*x0;   ddpm: out = c2*x0 + c3*x + c4*noise
 template <typename T>
-__global__ void __launch_bounds__(kDdimStepThreads<T>)
+__global__ void __launch_bounds__(kTcThreads)
 ddim_step_kernel(const float* __restrict__ x, const float* __restrict__ embin,
                  const float* __restrict__ trow, const float* __restrict__ c,
                  const float* __restrict__ noise, const T* __restrict__ Wf,
@@ -156,7 +156,7 @@ dpmpp_step_kernel(const float* __restrict__ x, const float* __restrict__ old,
 // At the last step sigma_next = 0 and sel = 0 selects x_eul by
 // multiplication, as the TPU kernel does; the second leg runs anyway.
 template <typename T>
-__global__ void __launch_bounds__(kChurnThreads<T>)
+__global__ void __launch_bounds__(kTcThreads)
 churn_step_kernel(const float* __restrict__ x, const float* __restrict__ noise,
                   const float* __restrict__ embin, const float* __restrict__ trowA,
                   const float* __restrict__ trowB, const float* __restrict__ a,
@@ -219,10 +219,10 @@ int gl_ddim_step(int dtype, const float* x, const float* embin, const float* tro
   cudaStream_t st = (cudaStream_t)stream;
   const Plan p = sampler_plan(L, cmax, E, Ce, G, 1);
   if (dtype == 0)
-    return launch_tc_rows<float, kDdimStepThreads<float>>(
+    return launch_tc_rows<float>(
         ddim_step_kernel<float>, p, L, BG, st, x, embin, trow, coef, noise, (const float*)w, net,
         out, BG, L, E, Ce, G, cmax, clip, clip_range);
-  return launch_tc_rows<__nv_bfloat16, kDdimStepThreads<__nv_bfloat16>>(
+  return launch_tc_rows<__nv_bfloat16>(
       ddim_step_kernel<__nv_bfloat16>, p, L, BG, st, x, embin, trow, coef, noise,
       (const __nv_bfloat16*)w, net, out, BG, L, E, Ce, G, cmax, clip, clip_range);
 }
@@ -249,10 +249,10 @@ int gl_churn_step(int dtype, const float* x, const float* noise, const float* em
   cudaStream_t st = (cudaStream_t)stream;
   const Plan p = sampler_plan(L, cmax, E, Ce, G, 4);
   if (dtype == 0)
-    return launch_tc_rows<float, kChurnThreads<float>>(
+    return launch_tc_rows<float>(
         churn_step_kernel<float>, p, L, BG, st, x, noise, embin, trowA, trowB, coefA, coefB,
         (const float*)w, net, out, BG, L, E, Ce, G, cmax, clamp);
-  return launch_tc_rows<__nv_bfloat16, kChurnThreads<__nv_bfloat16>>(
+  return launch_tc_rows<__nv_bfloat16>(
       churn_step_kernel<__nv_bfloat16>, p, L, BG, st, x, noise, embin, trowA, trowB, coefA, coefB,
       (const __nv_bfloat16*)w, net, out, BG, L, E, Ce, G, cmax, clamp);
 }

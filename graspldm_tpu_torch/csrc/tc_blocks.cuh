@@ -95,8 +95,8 @@
 // as one warp pass a group (resnet1d_blocks.cuh: gn_pass), which adds no
 // long-lived value (kernels.cu gives its times).
 //
-// Decisions, each timed against the sources without it by
-// tools/kernel_variants.py (H100 80GB HBM3, 700.00 W; full_kernel<float> at
+// Decisions, each timed against the sources without it in one call
+// (H100 80GB HBM3, 700.00 W; full_kernel<float> at
 // the class CFG's fpc BG = 8192 unless named; variants that cannot touch it
 // read 2.83-2.91 ms, the noise):
 //   * the split's three A parts are staged side by side, in the piece's

@@ -54,22 +54,19 @@ run the attention inside the network.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..cuda_build import KernelCounter, check_launch, on_cuda
+from ..cuda_build import KernelCounter, check_operand, on_cuda, ptr
 from ..diffusion.elucidated import ElucidatedDiffusion
 from ..diffusion.schedules import DiffusionSchedule
 from ..utils.profiling import SAMPLER_TABLES
 from .stacked_cuda import (
     DTYPE_CODE,
     PackedNet,
-    _check,
     _final_core,
-    _ptr,
     _rnd,
     _stage_core,
     _use_xla_attention,
@@ -86,12 +83,12 @@ __all__ = [
     "churn_sampler_apply", "CHURN_STEP_KERNEL", "churn_step_plain", "churn_step_apply",
 ]
 
-SAMPLER_KERNEL = KernelCounter("ddim_sampler_kernel")
-DPMPP_KERNEL = KernelCounter("dpmpp_sampler_kernel")
-CHURN_KERNEL = KernelCounter("churn_sampler_kernel")
-DDIM_STEP_KERNEL = KernelCounter("ddim_step_kernel")
-DPMPP_STEP_KERNEL = KernelCounter("dpmpp_step_kernel")
-CHURN_STEP_KERNEL = KernelCounter("churn_step_kernel")
+SAMPLER_KERNEL = KernelCounter("ddim_sampler_kernel", "gl_ddim_sample")
+DPMPP_KERNEL = KernelCounter("dpmpp_sampler_kernel", "gl_dpmpp_sample")
+CHURN_KERNEL = KernelCounter("churn_sampler_kernel", "gl_churn_sample")
+DDIM_STEP_KERNEL = KernelCounter("ddim_step_kernel", "gl_ddim_step")
+DPMPP_STEP_KERNEL = KernelCounter("dpmpp_step_kernel", "gl_dpmpp_step")
+CHURN_STEP_KERNEL = KernelCounter("churn_step_kernel", "gl_churn_step")
 
 
 def _step_coeffs(schedule: DiffusionSchedule, ts: torch.Tensor, prev: torch.Tensor,
@@ -170,10 +167,6 @@ def _in_kernel_attention(w: PackedNet, name: str) -> None:
         raise ValueError(f"{name} requires in-kernel attention")
 
 
-def _stream(x: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-
-
 def _check_tables(w: PackedNet, x_T, embin, S, **rows) -> None:
     """Operand checks shared by the sampler wrappers: ``x_T [BG, L]``,
     ``embin [BG, Ce*E]``, each time-row table ``[S, Ce*E]`` and each
@@ -181,10 +174,10 @@ def _check_tables(w: PackedNet, x_T, embin, S, **rows) -> None:
     d = w.dims
     BG = x_T.shape[0]
     CeE, f32 = d.cond_channels * d.emb_dim, torch.float32
-    _check("x_T", x_T, (BG, d.seq_len), f32, w.device)
-    _check("embin", embin, (BG, CeE), f32, w.device)
+    check_operand("x_T", x_T, (BG, d.seq_len), f32, w.device)
+    check_operand("embin", embin, (BG, CeE), f32, w.device)
     for name, t in rows.items():
-        _check(name, t, (S, 8 if name.startswith("coef") else CeE), f32, w.device)
+        check_operand(name, t, (S, 8 if name.startswith("coef") else CeE), f32, w.device)
 
 
 def _check_step(w: PackedNet, x, embin, states: dict, **rows) -> None:
@@ -195,7 +188,7 @@ def _check_step(w: PackedNet, x, embin, states: dict, **rows) -> None:
     _check_tables(w, x, embin, 1, **{k: v[None] for k, v in rows.items()})
     for name, t in states.items():
         if t is not None:
-            _check(name, t, tuple(x.shape), torch.float32, w.device)
+            check_operand(name, t, tuple(x.shape), torch.float32, w.device)
 
 
 def _out(out: Optional[torch.Tensor], like: torch.Tensor, check: bool) -> torch.Tensor:
@@ -204,7 +197,7 @@ def _out(out: Optional[torch.Tensor], like: torch.Tensor, check: bool) -> torch.
     if out is None:
         return torch.empty_like(like, dtype=torch.float32)
     if check:
-        _check("out", out, tuple(like.shape), torch.float32, like.device)
+        check_operand("out", out, tuple(like.shape), torch.float32, like.device)
     return out
 
 
@@ -219,23 +212,16 @@ def sampler_apply(w: PackedNet, x_T, embin, trows, coefs, noise=None, clip=True,
     _in_kernel_attention(w, "sampler_apply")
     if not on_cuda(x_T):
         return sampler_plain(w, x_T, embin, trows, coefs, noise, clip, clip_range)
-    from ..cuda_build import load_library
-
     d = w.dims
     BG, L = x_T.shape
     S, f32 = coefs.shape[0], torch.float32
     _check_tables(w, x_T, embin, S, trows=trows, coefs=coefs)
     if noise is not None:
-        _check("noise", noise, (S, BG, L), f32, w.device)
+        check_operand("noise", noise, (S, BG, L), f32, w.device)
     out = torch.empty((BG, L), dtype=f32, device=x_T.device)
-    rc = load_library().gl_ddim_sample(
-        DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trows), _ptr(coefs),
-        _ptr(noise), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L, d.emb_dim,
-        d.cond_channels, d.groups, w.cmax, int(bool(clip)), float(clip_range),
-        _stream(x_T),
-    )
-    check_launch(rc, "ddim_sampler_kernel")
-    SAMPLER_KERNEL.launches += 1
+    SAMPLER_KERNEL(x_T, DTYPE_CODE[w.dtype], ptr(x_T), ptr(embin), ptr(trows), ptr(coefs),
+                   ptr(noise), ptr(w.flat), ptr(w.layout), ptr(out), BG, S, L, d.emb_dim,
+                   d.cond_channels, d.groups, w.cmax, int(bool(clip)), float(clip_range))
     return out
 
 
@@ -253,20 +239,14 @@ def ddim_step_apply(w: PackedNet, x, embin, trow, coef, noise_s=None, clip=True,
     if not on_cuda(x):
         res = ddim_step_plain(w, x, embin, trow, coef, noise_s, clip, clip_range)
         return res if out is None else out.copy_(res)
-    from ..cuda_build import load_library
-
     if check:
         _check_step(w, x, embin, dict(noise_s=noise_s), trow=trow, coef=coef)
     out = _out(out, x, check)
     d = w.dims
     BG, L = x.shape
-    rc = load_library().gl_ddim_step(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(embin), _ptr(trow), _ptr(coef), _ptr(noise_s),
-        _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim, d.cond_channels, d.groups,
-        w.cmax, int(bool(clip)), float(clip_range), _stream(x),
-    )
-    check_launch(rc, "ddim_step_kernel")
-    DDIM_STEP_KERNEL.launches += 1
+    DDIM_STEP_KERNEL(x, DTYPE_CODE[w.dtype], ptr(x), ptr(embin), ptr(trow), ptr(coef),
+                     ptr(noise_s), ptr(w.flat), ptr(w.layout), ptr(out), BG, L, d.emb_dim,
+                     d.cond_channels, d.groups, w.cmax, int(bool(clip)), float(clip_range))
     return out
 
 
@@ -335,7 +315,7 @@ def fused_sample(
     if on_cuda(x_T):
         _check_tables(w, x_T, embin, n, trows=trows, coefs=coefs)
         if noise is not None:
-            _check("noise", noise, (n,) + tuple(x_T.shape), torch.float32, w.device)
+            check_operand("noise", noise, (n,) + tuple(x_T.shape), torch.float32, w.device)
     traj = _trajectory(x_T, n + 1)
     traj[0] = x_T
     for s in range(n):
@@ -411,20 +391,14 @@ def dpmpp_sampler_apply(w: PackedNet, x_T, embin, trows, coefs, clamp=False) -> 
     _in_kernel_attention(w, "dpmpp_sampler_apply")
     if not on_cuda(x_T):
         return dpmpp_sampler_plain(w, x_T, embin, trows, coefs, clamp)
-    from ..cuda_build import load_library
-
     d = w.dims
     BG, L = x_T.shape
     S = coefs.shape[0]
     _check_tables(w, x_T, embin, S, trows=trows, coefs=coefs)
     out = torch.empty((BG, L), dtype=torch.float32, device=x_T.device)
-    rc = load_library().gl_dpmpp_sample(
-        DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trows), _ptr(coefs),
-        _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L, d.emb_dim, d.cond_channels,
-        d.groups, w.cmax, int(bool(clamp)), _stream(x_T),
-    )
-    check_launch(rc, "dpmpp_sampler_kernel")
-    DPMPP_KERNEL.launches += 1
+    DPMPP_KERNEL(x_T, DTYPE_CODE[w.dtype], ptr(x_T), ptr(embin), ptr(trows), ptr(coefs),
+                 ptr(w.flat), ptr(w.layout), ptr(out), BG, S, L, d.emb_dim, d.cond_channels,
+                 d.groups, w.cmax, int(bool(clamp)))
     return out
 
 
@@ -439,20 +413,14 @@ def dpmpp_step_apply(w: PackedNet, x, old, embin, trow, coef, clamp=False, out=N
         x_new, den = dpmpp_step_plain(w, x, old, embin, trow, coef, clamp)
         return (x_new if out is None else out.copy_(x_new),
                 den if den_out is None else den_out.copy_(den))
-    from ..cuda_build import load_library
-
     if check:
         _check_step(w, x, embin, dict(old=old), trow=trow, coef=coef)
     out, den_out = _out(out, x, check), _out(den_out, x, check)
     d = w.dims
     BG, L = x.shape
-    rc = load_library().gl_dpmpp_step(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(old), _ptr(embin), _ptr(trow), _ptr(coef),
-        _ptr(w.flat), _ptr(w.layout), _ptr(out), _ptr(den_out), BG, L, d.emb_dim,
-        d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x),
-    )
-    check_launch(rc, "dpmpp_step_kernel")
-    DPMPP_STEP_KERNEL.launches += 1
+    DPMPP_STEP_KERNEL(x, DTYPE_CODE[w.dtype], ptr(x), ptr(old), ptr(embin), ptr(trow),
+                      ptr(coef), ptr(w.flat), ptr(w.layout), ptr(out), ptr(den_out), BG, L,
+                      d.emb_dim, d.cond_channels, d.groups, w.cmax, int(bool(clamp)))
     return out, den_out
 
 
@@ -568,21 +536,15 @@ def churn_sampler_apply(w: PackedNet, x_T, embin, trowsA, trowsB, coefA, coefB, 
     _in_kernel_attention(w, "churn_sampler_apply")
     if not on_cuda(x_T):
         return churn_sampler_plain(w, x_T, embin, trowsA, trowsB, coefA, coefB, noise, clamp)
-    from ..cuda_build import load_library
-
     d = w.dims
     BG, L = x_T.shape
     S = coefA.shape[0]
     _check_tables(w, x_T, embin, S, trowsA=trowsA, trowsB=trowsB, coefA=coefA, coefB=coefB)
-    _check("noise", noise, (S, BG, L), torch.float32, w.device)
+    check_operand("noise", noise, (S, BG, L), torch.float32, w.device)
     out = torch.empty((BG, L), dtype=torch.float32, device=x_T.device)
-    rc = load_library().gl_churn_sample(
-        DTYPE_CODE[w.dtype], _ptr(x_T), _ptr(embin), _ptr(trowsA), _ptr(trowsB), _ptr(coefA),
-        _ptr(coefB), _ptr(noise), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, S, L,
-        d.emb_dim, d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x_T),
-    )
-    check_launch(rc, "churn_sampler_kernel")
-    CHURN_KERNEL.launches += 1
+    CHURN_KERNEL(x_T, DTYPE_CODE[w.dtype], ptr(x_T), ptr(embin), ptr(trowsA), ptr(trowsB),
+                 ptr(coefA), ptr(coefB), ptr(noise), ptr(w.flat), ptr(w.layout), ptr(out), BG,
+                 S, L, d.emb_dim, d.cond_channels, d.groups, w.cmax, int(bool(clamp)))
     return out
 
 
@@ -597,21 +559,15 @@ def churn_step_apply(w: PackedNet, x, embin, trowA, trowB, coefA, coefB, noise_s
     if not on_cuda(x):
         res = churn_step_plain(w, x, embin, trowA, trowB, coefA, coefB, noise_s, clamp)
         return res if out is None else out.copy_(res)
-    from ..cuda_build import load_library
-
     if check:
         _check_step(w, x, embin, dict(noise_s=noise_s), trowA=trowA, trowB=trowB,
                     coefA=coefA, coefB=coefB)
     out = _out(out, x, check)
     d = w.dims
     BG, L = x.shape
-    rc = load_library().gl_churn_step(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(noise_s), _ptr(embin), _ptr(trowA), _ptr(trowB),
-        _ptr(coefA), _ptr(coefB), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG, L, d.emb_dim,
-        d.cond_channels, d.groups, w.cmax, int(bool(clamp)), _stream(x),
-    )
-    check_launch(rc, "churn_step_kernel")
-    CHURN_STEP_KERNEL.launches += 1
+    CHURN_STEP_KERNEL(x, DTYPE_CODE[w.dtype], ptr(x), ptr(noise_s), ptr(embin), ptr(trowA),
+                      ptr(trowB), ptr(coefA), ptr(coefB), ptr(w.flat), ptr(w.layout), ptr(out),
+                      BG, L, d.emb_dim, d.cond_channels, d.groups, w.cmax, int(bool(clamp)))
     return out
 
 
@@ -648,7 +604,7 @@ def fused_sample_churn(
     if on_cuda(x_T):
         _check_tables(w, x_T, embin, N, trowsA=trowsA, trowsB=trowsB, coefA=coefA,
                       coefB=coefB)
-        _check("noise", noise, (N,) + tuple(x_T.shape), torch.float32, w.device)
+        check_operand("noise", noise, (N,) + tuple(x_T.shape), torch.float32, w.device)
     traj = _trajectory(x_T, N + 1)
     traj[0] = x_T
     for s in range(N):

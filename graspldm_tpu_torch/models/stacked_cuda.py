@@ -42,19 +42,18 @@ Beside each kernel is its plain PyTorch version (``stage_plain``,
 ``hybrid_final_plain``): same math, rounding to the compute dtype
 at the same points. A wrapper runs the plain version for a CPU tensor and
 launches the kernel for a CUDA tensor, raising if the launch fails; it
-never falls back. Each wrapper counts its kernel launches
-(``STAGE_KERNEL.launches``, ...).
+never falls back. Each kernel is launched and counted through its handle
+(``STAGE_KERNEL``, ...: :class:`~graspldm_tpu_torch.cuda_build.KernelCounter`).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
 
-from ..cuda_build import KernelCounter, check_launch, on_cuda
+from ..cuda_build import KernelCounter, check_operand, on_cuda, ptr
 from .stacked_denoiser import DenoiserDims, attention_stacked, compute_emb_s_stacked
 
 __all__ = [
@@ -100,14 +99,14 @@ DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 LN_EPS = 1e-5  # the kernel path's LayerNorm eps in every dtype (as stacked_pallas)
 
 
-STAGE_KERNEL = KernelCounter("stage_kernel")
-FINAL_KERNEL = KernelCounter("final_kernel")
+STAGE_KERNEL = KernelCounter("stage_kernel", "gl_stage_forward")
+FINAL_KERNEL = KernelCounter("final_kernel", "gl_final_forward")
 # the float32 CUDA-core control of the two (``cuda_cores=True``), counted apart
-STAGE_KERNEL_CUDA_CORES = KernelCounter("stage_kernel_cuda_cores")
-FINAL_KERNEL_CUDA_CORES = KernelCounter("final_kernel_cuda_cores")
-FULL_KERNEL = KernelCounter("full_kernel")
-HYBRID_STAGE_KERNEL = KernelCounter("hybrid_stage_kernel")
-HYBRID_FINAL_KERNEL = KernelCounter("hybrid_final_kernel")
+STAGE_KERNEL_CUDA_CORES = KernelCounter("stage_kernel_cuda_cores", "gl_stage_forward_cuda_cores")
+FINAL_KERNEL_CUDA_CORES = KernelCounter("final_kernel_cuda_cores", "gl_final_forward_cuda_cores")
+FULL_KERNEL = KernelCounter("full_kernel", "gl_full_forward")
+HYBRID_STAGE_KERNEL = KernelCounter("hybrid_stage_kernel", "gl_hybrid_stage_forward")
+HYBRID_FINAL_KERNEL = KernelCounter("hybrid_final_kernel", "gl_hybrid_final_forward")
 
 # Attention placement, the counterpart of stacked_pallas.XLA_ATTENTION (off
 # by default there too). True routes an L > 4 network through the hybrid
@@ -428,41 +427,20 @@ def full_plain(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor
 # ---------------------------------------------------------------------------
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else ctypes.c_void_p(t.data_ptr())
-
-
-def _check(name: str, t: torch.Tensor, shape, dtype, device) -> None:
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, weights on {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
-
-
 def _control(w: PackedNet, cuda_cores: bool) -> None:
     if cuda_cores and w.dtype != torch.float32:
         raise ValueError("cuda_cores: the CUDA-core control of stage_kernel and final_kernel "
                          f"is float32 only, not {w.dtype}")
 
 
-def _launch(fn: str, counter: KernelCounter, w: PackedNet, x: torch.Tensor, *args,
-            cuda_cores: bool) -> None:
-    """Launch C entry ``fn`` (``*_cuda_cores``: the control, which takes no
-    dtype) on ``x``'s stream with ``args`` after the dtype; count it."""
-    from ..cuda_build import load_library
-
-    lib = load_library()
-    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-    if cuda_cores:
-        rc = getattr(lib, fn + "_cuda_cores")(*args, stream)
-    else:
-        rc = getattr(lib, fn)(DTYPE_CODE[w.dtype], *args, stream)
-    check_launch(rc, counter.name)
-    counter.launches += 1
+def _net_operands(w: PackedNet, x: torch.Tensor, emb: torch.Tensor, cols: int):
+    """Check ``x [BG, cols]`` and the FiLM input ``emb [BG, Ce*E]`` against
+    the pack; the pointers of the launch's leading operands (x, emb, the
+    weights, the layout)."""
+    d = w.dims
+    check_operand("x", x, (x.shape[0], cols), w.dtype, w.device)
+    check_operand("emb", emb, (x.shape[0], d.cond_channels * d.emb_dim), w.dtype, w.device)
+    return ptr(x), ptr(emb), ptr(w.flat), ptr(w.layout)
 
 
 def stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor,
@@ -478,12 +456,13 @@ def stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor,
     d = w.dims
     L, C, Cout = d.seq_len, d.cins[i], d.block_channels[i]
     BG = x.shape[0]
-    _check("x", x, (BG, L * C), w.dtype, w.device)
-    _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
+    ops = _net_operands(w, x, emb, L * C)
     out = torch.empty((BG, L * Cout), dtype=w.dtype, device=x.device)
-    _launch("gl_stage_forward", STAGE_KERNEL_CUDA_CORES if cuda_cores else STAGE_KERNEL, w, x,
-            _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), i, _ptr(out), BG, L, C, Cout,
-            d.emb_dim, d.cond_channels, d.groups, cuda_cores=cuda_cores)
+    args = (*ops, i, ptr(out), BG, L, C, Cout, d.emb_dim, d.cond_channels, d.groups)
+    if cuda_cores:  # the control takes no dtype
+        STAGE_KERNEL_CUDA_CORES(x, *args)
+    else:
+        STAGE_KERNEL(x, DTYPE_CODE[w.dtype], *args)
     return out
 
 
@@ -497,12 +476,14 @@ def final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor,
     d = w.dims
     L, C = d.seq_len, d.block_channels[-1]
     BG = x.shape[0]
-    _check("x", x, (BG, L * C), w.dtype, w.device)
-    _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
+    ops = _net_operands(w, x, emb, L * C)
     out = torch.empty((BG, L), dtype=w.dtype, device=x.device)
-    _launch("gl_final_forward", FINAL_KERNEL_CUDA_CORES if cuda_cores else FINAL_KERNEL, w, x,
-            _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), len(d.block_channels), _ptr(out),
-            BG, L, C, d.emb_dim, d.cond_channels, d.groups, cuda_cores=cuda_cores)
+    args = (*ops, len(d.block_channels), ptr(out), BG, L, C, d.emb_dim, d.cond_channels,
+            d.groups)
+    if cuda_cores:
+        FINAL_KERNEL_CUDA_CORES(x, *args)
+    else:
+        FINAL_KERNEL(x, DTYPE_CODE[w.dtype], *args)
     return out
 
 
@@ -511,42 +492,26 @@ def full_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor
     with FiLM input ``emb [BG, Ce*E]`` -> ``[BG, L]``."""
     if not on_cuda(x):
         return full_plain(w, x, emb)
-    from ..cuda_build import load_library
-
     d = w.dims
     L, BG = d.seq_len, x.shape[0]
-    _check("x", x, (BG, L * w.w["init_w"].shape[1]), w.dtype, w.device)
-    _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
+    ops = _net_operands(w, x, emb, L * w.w["init_w"].shape[1])
     out = torch.empty((BG, L), dtype=w.dtype, device=x.device)
-    rc = load_library().gl_full_forward(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), _ptr(out), BG,
-        L, d.emb_dim, d.cond_channels, d.groups, w.cmax,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
-    check_launch(rc, "full_kernel")
-    FULL_KERNEL.launches += 1
+    FULL_KERNEL(x, DTYPE_CODE[w.dtype], *ops, ptr(out), BG, L, d.emb_dim, d.cond_channels,
+                d.groups, w.cmax)
     return out
 
 
-def _hybrid_launch(fn: str, counter: KernelCounter, w: PackedNet, i: int, x: torch.Tensor,
-                   emb: torch.Tensor, out_cols: int, C: int) -> torch.Tensor:
-    """Launch hybrid kernel ``fn`` for record ``i`` (stage i, or the final
-    block at i = n_stages), whose input is ``[BG, L*C_{i-1}]``."""
-    from ..cuda_build import load_library
-
+def _hybrid(handle: KernelCounter, w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor,
+            out_cols: int, C: int) -> torch.Tensor:
+    """Launch a hybrid kernel for record ``i`` (stage i, or the final block
+    at i = n_stages), whose input is ``[BG, L*C_{i-1}]``."""
     d = w.dims
     L, BG = d.seq_len, x.shape[0]
     Cin = d.cins[max(i - 1, 0)]
-    _check("x", x, (BG, L * Cin), w.dtype, w.device)
-    _check("emb", emb, (BG, d.cond_channels * d.emb_dim), w.dtype, w.device)
+    ops = _net_operands(w, x, emb, L * Cin)
     out = torch.empty((BG, out_cols), dtype=w.dtype, device=x.device)
-    rc = getattr(load_library(), fn)(
-        DTYPE_CODE[w.dtype], _ptr(x), _ptr(emb), _ptr(w.flat), _ptr(w.layout), i, _ptr(out),
-        BG, L, Cin, C, d.emb_dim, d.cond_channels, d.groups,
-        ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream),
-    )
-    check_launch(rc, counter.name)
-    counter.launches += 1
+    handle(x, DTYPE_CODE[w.dtype], *ops, i, ptr(out), BG, L, Cin, C, d.emb_dim, d.cond_channels,
+           d.groups)
     return out
 
 
@@ -556,8 +521,7 @@ def hybrid_stage_apply(w: PackedNet, i: int, x: torch.Tensor, emb: torch.Tensor)
     if not on_cuda(x):
         return hybrid_stage_plain(w, i, x, emb)
     C = w.dims.cins[i]
-    return _hybrid_launch("gl_hybrid_stage_forward", HYBRID_STAGE_KERNEL, w, i, x, emb,
-                          w.dims.seq_len * C, C)
+    return _hybrid(HYBRID_STAGE_KERNEL, w, i, x, emb, w.dims.seq_len * C, C)
 
 
 def hybrid_final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torch.Tensor:
@@ -566,8 +530,8 @@ def hybrid_final_apply(w: PackedNet, x: torch.Tensor, emb: torch.Tensor) -> torc
     if not on_cuda(x):
         return hybrid_final_plain(w, x, emb)
     d = w.dims
-    return _hybrid_launch("gl_hybrid_final_forward", HYBRID_FINAL_KERNEL, w,
-                          len(d.block_channels), x, emb, d.seq_len, d.block_channels[-1])
+    return _hybrid(HYBRID_FINAL_KERNEL, w, len(d.block_channels), x, emb, d.seq_len,
+                   d.block_channels[-1])
 
 
 def init_conv(w: PackedNet, x: torch.Tensor) -> torch.Tensor:

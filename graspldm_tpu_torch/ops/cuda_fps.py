@@ -17,15 +17,13 @@ counts the launches.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from ..cuda_build import KernelCounter, check_launch, on_cuda
+from ..cuda_build import KernelCounter, on_cuda, ptr, query
 
 __all__ = ["FPS_KERNEL", "fps_plain", "fps_apply"]
 
-FPS_KERNEL = KernelCounter("fps_kernel")
+FPS_KERNEL = KernelCounter("fps_kernel", "gl_fps")
 
 
 def fps_plain(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
@@ -55,17 +53,12 @@ def fps_apply(coords: torch.Tensor, num_samples: int) -> torch.Tensor:
         raise ValueError(f"num_samples must be >= 1, got {num_samples}")
     if not on_cuda(coords):
         return fps_plain(coords, num_samples)
-    from ..cuda_build import load_library
-
-    lib = load_library()
     B, N, _ = coords.shape
-    if not 1 <= N <= lib.gl_fps_max_points():
+    n_max = query("gl_fps_max_points")
+    if not 1 <= N <= n_max:
         raise ValueError(f"fps_kernel holds one cloud in one block: N must be in "
-                         f"[1, {lib.gl_fps_max_points()}], got {N}")
+                         f"[1, {n_max}], got {N}")
     c = coords.float().contiguous()
     out = torch.empty((B, num_samples), dtype=torch.long, device=c.device)
-    rc = lib.gl_fps(ctypes.c_void_p(c.data_ptr()), ctypes.c_void_p(out.data_ptr()), B, N,
-                    num_samples, ctypes.c_void_p(torch.cuda.current_stream(c.device).cuda_stream))
-    check_launch(rc, "fps_kernel")
-    FPS_KERNEL.launches += 1
+    FPS_KERNEL(c, ptr(c), ptr(out), B, N, num_samples)
     return out

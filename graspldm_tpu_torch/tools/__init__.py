@@ -4,7 +4,7 @@
 Each module holds the plain PyTorch version of its chain in every form, the
 wrapper that runs that version for a CPU tensor and launches the Hopper
 kernel (``csrc/microbench.cu``) for a CUDA tensor, the kernel's launch
-counter, the timing function its ``main()`` calls, and ``main()`` itself::
+handle, the timing function its ``main()`` calls, and ``main()`` itself::
 
     python -m graspldm_tpu_torch.tools.bench_mm [R_total]
     python -m graspldm_tpu_torch.tools.bench_silu [R_total] [width]

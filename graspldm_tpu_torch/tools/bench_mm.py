@@ -26,13 +26,12 @@ the float32 pool (the wrapper splits it, inside the call).
 
 from __future__ import annotations
 
-import ctypes
 from typing import Iterator
 
 import numpy as np
 import torch
 
-from ..cuda_build import KernelCounter, check_launch, on_cuda
+from ..cuda_build import KernelCounter, on_cuda, ptr
 from ..utils.profiling import device_line, timeit
 from ..flagship import resolve_device
 from ..models.stacked_cuda import bf16_parts as split_pool  # the pool's exact bf16 split
@@ -47,7 +46,7 @@ REPS = 12
 MULT = 0.999
 FORMS = ("f32", "bf16", "split")
 FORM_CODE = {f: i for i, f in enumerate(FORMS)}
-MM_CHAIN_KERNEL = KernelCounter("mm_chain_kernel")
+MM_CHAIN_KERNEL = KernelCounter("mm_chain_kernel", "gl_mm_chain")
 
 
 def make_pool(device=None):
@@ -120,17 +119,10 @@ def mm_chain_apply(x: torch.Tensor, pf: torch.Tensor, pb: torch.Tensor, form: st
         raise ValueError(f"mm_chain_kernel takes K in steps of 32, got {Kx}")
     if pf.device != x.device or pb.device != x.device:
         raise ValueError("x, pf and pb must lie on one device")
-    from ..cuda_build import load_library
-
-    lib = load_library()
     x, pool = aligned(x), aligned(split_pool(pf) if form == "f32" else pb)
     out = torch.empty((x.shape[0], N), dtype=torch.float32, device=x.device)
-    P = ctypes.c_void_p
-    rc = lib.gl_mm_chain(FORM_CODE[form], P(x.data_ptr()), P(pool.data_ptr()), P(out.data_ptr()),
-                         x.shape[0], Kx, reps, bf16_bits(MULT),
-                         P(torch.cuda.current_stream(x.device).cuda_stream))
-    check_launch(rc, "mm_chain_kernel")
-    MM_CHAIN_KERNEL.launches += 1
+    MM_CHAIN_KERNEL(x, FORM_CODE[form], ptr(x), ptr(pool), ptr(out), x.shape[0], Kx, reps,
+                    bf16_bits(MULT))
     return out
 
 

@@ -26,13 +26,12 @@ a CPU one; the decay and the zero are runtime arguments of the kernel.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import Iterator
 
 import torch
 
-from ..cuda_build import KernelCounter, check_launch, on_cuda
+from ..cuda_build import KernelCounter, on_cuda, ptr
 from ..utils.profiling import device_line, timeit
 from ..flagship import resolve_device
 from . import aligned, bf16_bits, tool_parser
@@ -46,7 +45,7 @@ REPS = 20
 DECAY, ZERO = 0.5, 0.0
 FORMS = ("matmul", "repeat", "narrow")
 FORM_CODE = {f: i for i, f in enumerate(FORMS)}
-BCAST_CHAIN_KERNEL = KernelCounter("bcast_chain_kernel")
+BCAST_CHAIN_KERNEL = KernelCounter("bcast_chain_kernel", "gl_bcast_chain")
 
 
 def qbcast(device=None) -> torch.Tensor:
@@ -113,17 +112,10 @@ def bcast_chain_apply(s: torch.Tensor, v: torch.Tensor, b: torch.Tensor, form: s
         return plain_chain(s, v, b, form, reps)
     if v.device != s.device or b.device != s.device:
         raise ValueError("s, v and b must lie on one device")
-    from ..cuda_build import load_library
-
-    lib = load_library()
     s, v, b = aligned(s), aligned(v), aligned(b)
     out = torch.empty((R, HD), dtype=torch.bfloat16, device=s.device)
-    P = ctypes.c_void_p
-    rc = lib.gl_bcast_chain(FORM_CODE[form], P(s.data_ptr()), P(v.data_ptr()), P(b.data_ptr()),
-                            P(out.data_ptr()), R, reps, bf16_bits(DECAY), bf16_bits(ZERO),
-                            P(torch.cuda.current_stream(s.device).cuda_stream))
-    check_launch(rc, "bcast_chain_kernel")
-    BCAST_CHAIN_KERNEL.launches += 1
+    BCAST_CHAIN_KERNEL(s, FORM_CODE[form], ptr(s), ptr(v), ptr(b), ptr(out), R, reps,
+                       bf16_bits(DECAY), bf16_bits(ZERO))
     return out
 
 

@@ -19,12 +19,11 @@ a CPU one.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Iterator
 
 import torch
 
-from ..cuda_build import KernelCounter, check_launch, on_cuda
+from ..cuda_build import KernelCounter, on_cuda, ptr
 from ..utils.profiling import device_line, timeit
 from ..flagship import resolve_device
 from . import aligned, bf16_bits, tool_parser
@@ -37,7 +36,7 @@ REPS = 12
 MULT = 0.999
 FORMS = ("f32", "bf16exp", "mixexp")
 FORM_CODE = {f: i for i, f in enumerate(FORMS)}
-SILU_CHAIN_KERNEL = KernelCounter("silu_chain_kernel")
+SILU_CHAIN_KERNEL = KernelCounter("silu_chain_kernel", "gl_silu_chain")
 
 
 def make_inputs(R: int, width: int = W, device=None, seed: int = 0) -> torch.Tensor:
@@ -78,16 +77,9 @@ def silu_chain_apply(x: torch.Tensor, form: str, reps: int = REPS) -> torch.Tens
         raise ValueError(f"x must be bf16, got {x.dtype}")
     if not on_cuda(x):
         return plain_chain(x, form, reps)
-    from ..cuda_build import load_library
-
-    lib = load_library()
     x = aligned(x)
     out = torch.empty_like(x)
-    P = ctypes.c_void_p
-    rc = lib.gl_silu_chain(FORM_CODE[form], P(x.data_ptr()), P(out.data_ptr()), x.numel(), reps,
-                           bf16_bits(MULT), P(torch.cuda.current_stream(x.device).cuda_stream))
-    check_launch(rc, "silu_chain_kernel")
-    SILU_CHAIN_KERNEL.launches += 1
+    SILU_CHAIN_KERNEL(x, FORM_CODE[form], ptr(x), ptr(out), x.numel(), reps, bf16_bits(MULT))
     return out
 
 

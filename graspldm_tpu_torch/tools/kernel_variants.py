@@ -1,8 +1,15 @@
-"""Design check of the tensor-core network bodies on one card: each decision
-of their design against the kernel sources without it.
+"""Design check of the tensor-core network bodies on one card: each open
+decision of their design against the kernel sources without it.
 
 A variant is ``csrc/`` with text patches that undo one decision (every patch
-must apply once, or the run stops before it builds). Each variant's
+must apply once, or the run stops before it builds). A variant lives while
+its decision is open: the change that closes the decision deletes the
+variant and records its reading (with the hardware and the change that
+measured it) in the note of the ``csrc/`` source it settles. The open ones:
+GroupNorm in two passes and bf16 GroupNorm in one pass (held bitwise by
+``--parent``), and the bf16 samplers on the tensor cores (churn, churn with
+a fresh accumulator a k-step, the DDIM step, DPM++), blocked on
+``chip_smoke.py``'s bf16 mean limits at ppc. Each variant's
 libraries of the timed kernels build side by side, one ``nvcc`` a source,
 all started together, into the git-ignored build directory. Then each
 timed call runs with every variant's entry in turn, forward and back, on
@@ -78,7 +85,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-from ..cuda_build import _FLAGS, _SOURCES, BUILD_DIR, CSRC, load_library, nvcc_path
+from ..cuda_build import _FLAGS, BUILD_DIR, CSRC, c_entries, load_library, nvcc_path
 from ..flagship import FlagshipConfig, build_flagship, resolve_device
 from ..inference.pipeline import _denoiser_dims
 from ..models import cuda_sampler as cs
@@ -91,7 +98,7 @@ from ..utils.profiling import device_line, timeit
 
 __all__ = ["VARIANTS", "patched_sources", "main"]
 
-_TC, _SB, _K, _RB = "tc_blocks.cuh", "sampler_body.cuh", "kernels.cu", "resnet1d_blocks.cuh"
+_TC, _SB, _RB = "tc_blocks.cuh", "sampler_body.cuh", "resnet1d_blocks.cuh"
 _BF16_CHURN_TC = (_SB, "template <typename T> constexpr bool kChurnTc = sizeof(T) == 4;",
                   "template <typename T> constexpr bool kChurnTc = true;")
 # each bf16 mma into a zeroed accumulator, its sum added to the running one
@@ -112,108 +119,24 @@ _FRESH = (_TC, """            mma_bf16(acc[i][2 * q], a[0], bq[d][0][q].x, bq[d]
               mma_bf16(acc[i][2 * q + 1], a[0], bq[d][0][q].z, bq[d][0][q].w);
             }
 """)
-# the float32 tensor-core resblocks' GroupNorms back in two passes each,
-# group_stats and then the apply (resblock's own code): the same outputs
-# bit for bit, as the one pass keeps group_stats' order
-_GN_TWO_PASSES = [
-    (_RB, "  if constexpr (P::kGn) {  // each GroupNorm one pass\n", "  if constexpr (false) {\n"),
-]
-# gn_pass's three loops not unrolled: each read waits on the one before
-_GN_ROLLED = [
-    (_RB, "#pragma unroll 4\n    for (int i = lane; i < n; i += 32) s += ",
-     "    for (int i = lane; i < n; i += 32) s += "),
-    (_RB, "#pragma unroll 4\n    for (int i = lane; i < n; i += 32) {\n      const float d",
-     "    for (int i = lane; i < n; i += 32) {\n      const float d"),
-    (_RB, "#pragma unroll 4\n    for (int i = lane + 32 * part; i < n; i += 32 * split) {",
-     "    for (int i = lane + 32 * part; i < n; i += 32 * split) {"),
-]
-# a pair a warp, the others idle where there are more warps than pairs
-_GN_PAIR_A_WARP = [
-    (_RB, "  const int split = nw >= 2 * pairs ? nw / pairs : 1;",
-     "  const int split = 1;"),
-]
-# name -> [(file, text, replacement)]: each undoes one decision
+# name -> [(file, text, replacement)]: each undoes one open decision
 VARIANTS: Dict[str, List[Tuple[str, str, str]]] = {
     "as built": [],
-    "GroupNorm in two passes": _GN_TWO_PASSES,
-    "GroupNorm pass loops rolled": _GN_ROLLED,
-    "GroupNorm pass a warp a pair": _GN_PAIR_A_WARP,
+    # the float32 tensor-core resblocks' GroupNorms in two passes each,
+    # group_stats and then the apply (resblock's own code): the same outputs
+    # bit for bit, as the one pass keeps group_stats' order
+    "GroupNorm in two passes": [
+        (_RB, "  if constexpr (P::kGn) {  // each GroupNorm one pass\n", "  if constexpr (false) {\n")],
     "bf16 GroupNorm in one pass": [
         (_TC, "  static constexpr bool kGn = sizeof(T) == 4;", "  static constexpr bool kGn = true;")],
-    "fp32 fpc at 9 rows": [(_SB, "  if (R * L > 32) R -= (R * L % 32) / L;\n", "")],
-    "bf16: B 1 k-step ahead": [(_TC, "constexpr int kTcDepth = 2;", "constexpr int kTcDepth = 1;")],
-    "split: B 2 k-steps ahead": [
-        (_TC, "constexpr int DEPTH = NA == 1 ? kTcDepth : 1;", "constexpr int DEPTH = kTcDepth;")],
-    "split: one accumulator": [
-        (_TC, "mma_bf16(acs[i][2 * q], av,", "mma_bf16(acc[i][2 * q], av,"),
-        (_TC, "mma_bf16(acs[i][2 * q + 1], av,", "mma_bf16(acc[i][2 * q + 1], av,")],
-    "split: five products (a3 dropped)": [(_TC, "              small(a[2], bq[d][0][q]);\n", "")],
-    "warps in a fixed 2 x 8 grid": [
-        (_TC, """  const FastDiv md(mgroups);
-  for (int u = warp; u < mgroups * ngroups; u += kTcWarps) {
-    const int m0 = md.mod(u) * 16 * MT, p0 = md.div(u) * NQ;
-""", """  const int wm = warp % 2, wn = warp / 2;
-  for (int m0 = wm * 16 * MT; m0 < M; m0 += 64)
-  for (int cg = wn; cg < ngroups; cg += 8) {
-    const int p0 = cg * NQ;
-""")],
-    "row positions at each tap": [
-        (_TC, "  auto src_of = [&](int r, int rl, int dl) {\n",
-         "  auto src_of = [&](int r, int, int dl) {\n    const int rl = r % L;\n")],
-    "bf16: parts placed by a division": [
-        (_TC, "const int n0 = NA == 1 ? (part <= sc.cap[0] ? 1 : 0) : sc.cap[0] / part;",
-         "const int n0 = sc.cap[0] / part;")],
-    "m-tiles past M skipped": [
-        (_TC, "          uint32_t a[NA][4];\n",
-         "          if (m0 + 16 * i >= M) continue;\n          uint32_t a[NA][4];\n")],
-    "stage count read after the barrier": [
-        (_SB, "const int n_st = (int)net[N_NSTAGES], dim0 = (int)net[N_DIM0];",
-         "const int dim0 = (int)net[N_DIM0];"),
-        (_SB, "net_body<T, TC>(b, n_st, R,", "net_body<T, TC>(b, (int)net[N_NSTAGES], R,")],
-    "net_body not forced inline": [
-        (_SB, "__device__ __forceinline__ void net_body(", "__device__ inline void net_body(")],
-    "net_step not forced inline": [
-        (_SB, "__device__ __forceinline__ const float* net_step(",
-         "__device__ inline const float* net_step(")],
-    "bf16 churn at 256 threads": [
-        (_SB, "template <typename T> constexpr int kChurnThreads = kTcThreads;",
-         "template <typename T> constexpr int kChurnThreads = sizeof(T) == 4 ? kTcThreads "
-         ": kThreads;")],
     "bf16 churn on the tensor cores": [_BF16_CHURN_TC],
     "bf16 churn on the tensor cores, a fresh accumulator a k-step": [_BF16_CHURN_TC, _FRESH],
-    "tensor-core body at 256 threads": [
-        (_TC, "constexpr int kTcThreads = 512;", "constexpr int kTcThreads = 256;")],
     "bf16 DDIM step on the tensor cores": [
         (_SB, "template <typename T> constexpr bool kDdimStepTc = sizeof(T) == 4;",
          "template <typename T> constexpr bool kDdimStepTc = true;")],
-    "bf16 DDIM step at 256 threads": [
-        (_SB, "template <typename T> constexpr int kDdimStepThreads = kTcThreads;",
-         "template <typename T> constexpr int kDdimStepThreads = sizeof(T) == 4 ? kTcThreads "
-         ": kThreads;")],
-    "final block in final_plan's rows, staging room for one A part in OUT": [
-        (_K, "  return TC ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
-         "  Plan p = final_plan(L, C, E, G);\n"
-         "  if (TC) p.out = up8((L + 1) * (C + 8));\n"
-         "  return p;")],
-    "final block in final_plan's rows, A value by value": [
-        (_K, "  return TC ? stage_plan(L, C, C, E, G) : final_plan(L, C, E, G);",
-         "  return final_plan(L, C, E, G);")],
-    "fp32 decoder stages in tc_rows_per_block's rows": [
-        (_K, "  return launch_rows<T, TC ? kTcThreads : kThreads>(\n"
-             "      stage_kernel<T, TC>, stage_plan(L, C, Cout, E, G), BG, st,",
-         "  if constexpr (TC && sizeof(T) == 4)\n"
-         "    return launch_tc_rows<T>(stage_kernel<T, TC>, stage_plan(L, C, Cout, E, G), L, BG,"
-         " st, (const T*)x, (const T*)emb, (const T*)w, net, stage, (T*)out, BG, L, C, Cout, E,"
-         " Ce, G);\n"
-         "  else return launch_rows<T, TC ? kTcThreads : kThreads>(\n"
-         "      stage_kernel<T, TC>, stage_plan(L, C, Cout, E, G), BG, st,")],
     "bf16 DPM++ on the tensor cores": [
         (_SB, "template <typename T> constexpr bool kDpmppTc = sizeof(T) == 4;",
          "template <typename T> constexpr bool kDpmppTc = true;")],
-    "bf16 DPM++ at 256 threads": [
-        (_SB, "template <typename T> constexpr int kDpmppThreads = kTcThreads;",
-         "template <typename T> constexpr int kDpmppThreads = sizeof(T) == 4 ? kTcThreads "
-         ": kThreads;")],
 }
 # the timed calls' sources
 _BUILT = {"full": ("full_net.cu",), "ddim": ("kernels.cu", "step_samplers.cu"),
@@ -296,7 +219,7 @@ def _build(variants: Dict[str, object], sources,
             inst = ("fp32" if dt == "f" else "bf16") + (", CUDA cores" if tc == "Lb0E" else "")
             print(f"ptxas {name}: {kernel}<{inst}>: {regs} registers, {spill}", flush=True)
         lib = ctypes.CDLL(str(d / f"{src}.so"))
-        for entry, argtypes in _SOURCES[src].items():
+        for entry, argtypes in c_entries((d / src).read_text(), src).items():
             fn = getattr(lib, entry)
             fn.argtypes, fn.restype = argtypes, ctypes.c_int
             setattr(libs[name], entry, fn)

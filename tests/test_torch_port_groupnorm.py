@@ -59,8 +59,8 @@ def _variants():
 @pytest.mark.parametrize("name", _variants())
 def test_kernel_variants_patches_apply(name):
     """Each variant of ``tools/kernel_variants.py`` (GroupNorm's two passes
-    again, its one pass's loops rolled, bf16 in one pass, among them) and
-    its ``--staging`` counter still patch today's sources: each text once."""
+    again and bf16 in one pass among them) and its ``--staging`` counter
+    still patch today's sources: each text once."""
     from graspldm_tpu_torch.tools import kernel_variants as kv
 
     kv.patched_sources(kv._STAGING if name == "--staging counter" else kv.VARIANTS[name])

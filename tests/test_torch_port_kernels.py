@@ -19,6 +19,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from graspldm_tpu_torch.cuda_build import handles
 from graspldm_tpu_torch.diffusion import DiffusionSchedule, ElucidatedDiffusion
 from graspldm_tpu_torch.inference.pipeline import _denoiser_dims
 from graspldm_tpu_torch.models import GraspCVAE, GraspLatentDDM
@@ -37,15 +38,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 
 def _counts():
-    return tuple(k.launches for k in (sc.STAGE_KERNEL, sc.FINAL_KERNEL,
-                                      sc.STAGE_KERNEL_CUDA_CORES, sc.FINAL_KERNEL_CUDA_CORES,
-                                      sc.FULL_KERNEL,
-                                      sc.HYBRID_STAGE_KERNEL, sc.HYBRID_FINAL_KERNEL,
-                                      cs.SAMPLER_KERNEL, cs.DPMPP_KERNEL, cs.CHURN_KERNEL,
-                                      cs.DDIM_STEP_KERNEL, cs.DPMPP_STEP_KERNEL,
-                                      cs.CHURN_STEP_KERNEL, cuda_fps.FPS_KERNEL,
-                                      bench_mm.MM_CHAIN_KERNEL, bench_silu.SILU_CHAIN_KERNEL,
-                                      bench_repeat.BCAST_CHAIN_KERNEL))
+    return {name: k.launches for name, k in handles().items()}
 
 
 @pytest.fixture(scope="module")
@@ -442,8 +435,8 @@ TOLS = {torch.float32: dict(rtol=1e-4, atol=1e-4), torch.bfloat16: dict(rtol=0, 
 # against full_plain within this many times the chain's (chip_smoke.py's
 # limit), and the two within SPLIT_VS_CHAIN of max(1, max|ref|) of each
 # other (chip_smoke.py reads them 1.7e-6 to 2.7e-6 of it apart on the card;
-# tools/kernel_variants.py reads a split that drops the third activation
-# part 1.8e-5 to 6.9e-5 of it from full_plain)
+# a split that drops the third activation part read 1.8e-5 to 6.9e-5 of it
+# from full_plain there)
 SPLIT_VS_CUDA_CORES = 4.0
 SPLIT_VS_CHAIN = 5e-6
 
@@ -1020,11 +1013,11 @@ def test_float32_decoder_fast_apply_matches_decode_on_card(cuda, config):
     z_h, z_pc = _decode_latents(vae, 4096, 19, cuda)
     before = _counts()
     got = decoder_fast_apply(w, z_h, z_pc)
-    counted = [a - b for a, b in zip(_counts(), before)]
+    counted = {k: n - before[k] for k, n in _counts().items() if n != before[k]}
     with torch.no_grad():
         want = vae.decode(z_h, z_pc)
     torch.cuda.synchronize()
-    assert counted[:4] == [4, 1, 0, 0] and not any(counted[4:]), counted
+    assert counted == {"stage_kernel": 4, "final_kernel": 1}, counted
     assert len(got) == len(want)
     for g_, r in zip(got, want):
         torch.testing.assert_close(g_, r, **_rel(TOLS[torch.float32], r))
