@@ -115,7 +115,9 @@
 // statistics, half the apply) took the ppc sampler from 163.6 to 160.2 ms;
 // the loops unrolled by 4 gain 0.2-0.3 % on the DDIM sampler and nothing
 // on DPM++ (each against the sources without it, in one call).
-// wgmma and TMA are later work.
+// net_body's pieces forced inline in the float32 tensor-core kernels:
+// sampler_body.cuh (body_resblock) gives the times. wgmma: tc_blocks.cuh's
+// note. TMA is later work.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -shared (plain C
 // interface, loaded with ctypes; see graspldm_tpu_torch/cuda_build.py).

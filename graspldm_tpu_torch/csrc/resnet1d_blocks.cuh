@@ -401,11 +401,13 @@ __device__ inline void layer_norm_tokens(const T* SRC, T* DST, const T* resid, i
 // the same bits. The weights' pointers are formed where they are used: the
 // float32 sampler kernels run at their 128 registers, and what stays live
 // through a product's k-loop there is spilled (tc_blocks.cuh says what that
-// cost).
+// cost). The body, forced inline: net_body's float32 tensor-core instances
+// call it directly (sampler_body.cuh: body_resblock); resblock_gn below is
+// the entry of every other caller.
 template <typename T, typename P>
-__device__ inline void resblock_gn(const Bufs<T>& b, T* X, int R, int L, int C, int E, int Ce,
-                                   int G, const T* __restrict__ Wf, const long long* sl,
-                                   const P& prod) {
+__device__ __forceinline__ void resblock_gn_body(const Bufs<T>& b, T* X, int R, int L, int C,
+                                                 int E, int Ce, int G, const T* __restrict__ Wf,
+                                                 const long long* sl, const P& prod) {
   const int M = R * L, C2 = 2 * C;
   const float ce = (float)Ce;
   float* SS = b.SS;
@@ -434,6 +436,13 @@ __device__ inline void resblock_gn(const Bufs<T>& b, T* X, int R, int L, int C, 
   __syncthreads();
   gn_pass<true, T, D>(H, X, R, L, C, G, Wf + sl[S_G2], Wf + sl[S_BE2], SS, ce);
   __syncthreads();
+}
+
+template <typename T, typename P>
+__device__ inline void resblock_gn(const Bufs<T>& b, T* X, int R, int L, int C, int E, int Ce,
+                                   int G, const T* __restrict__ Wf, const long long* sl,
+                                   const P& prod) {
+  resblock_gn_body(b, X, R, L, C, E, Ce, G, Wf, sl, prod);
 }
 
 // ResnetBlock1D at width C on X (in place). ESUM [R][E] is the fp32 sum of
@@ -494,11 +503,13 @@ __device__ inline void resblock(const Bufs<T>& b, T* X, int R, int L, int C, int
 }
 
 // Residual linear attention at width C on X (in place):
-// X += LN_out(Wo @ ((q k^T) v) + bo), q/k/v from LN_in(X).
-template <typename T, typename P = SimtProducts>
-__device__ inline void attention(const Bufs<T>& b, T* X, int R, int L, int C,
-                                 const T* __restrict__ Wf, const long long* rec,
-                                 const P& prod = P()) {
+// X += LN_out(Wo @ ((q k^T) v) + bo), q/k/v from LN_in(X). The body, forced
+// inline (net_body's float32 tensor-core instances: body_attention in
+// sampler_body.cuh); attention below is the entry of every other caller.
+template <typename T, typename P>
+__device__ __forceinline__ void attention_body(const Bufs<T>& b, T* X, int R, int L, int C,
+                                               const T* __restrict__ Wf, const long long* rec,
+                                               const P& prod) {
   const T* gin = Wf + rec[R_ATTN_G];
   const T* wqkv = Wf + rec[R_WQKV];
   const T* wo = Wf + rec[R_WO];
@@ -553,6 +564,13 @@ __device__ inline void attention(const Bufs<T>& b, T* X, int R, int L, int C,
   __syncthreads();
   layer_norm_tokens<T>(H, X, X, M, C, gout);
   __syncthreads();
+}
+
+template <typename T, typename P = SimtProducts>
+__device__ inline void attention(const Bufs<T>& b, T* X, int R, int L, int C,
+                                 const T* __restrict__ Wf, const long long* rec,
+                                 const P& prod = P()) {
+  attention_body(b, X, R, L, C, Wf, rec, prod);
 }
 
 // k3 projection conv X [R][L][C] -> OUT [R][L][Cout]

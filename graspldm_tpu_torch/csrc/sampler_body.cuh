@@ -111,6 +111,40 @@ __device__ inline void load_sampler_rows(const Bufs<T>& b, const float* __restri
     b.EMBIN[idx] = row0 + idx / CeE < BG ? embin[(size_t)row0 * CeE + idx] : 0.f;
 }
 
+// net_body's resblocks and attention: in its float32 tensor-core instances
+// (FI) the pieces' bodies forced inline (resnet1d_blocks.cuh: resblock_gn_body,
+// attention_body), elsewhere resblock and attention as every other kernel
+// calls them. Against the pieces left to the compiler, in one call (H100
+// 80GB HBM3, 700.00 W, the lesser of two turns, outputs bitwise the same):
+// the float32 DDIM sampler 147.1 against 159.5 ms at fpc BG 4096 and 150.5
+// against 160.5 at ppc 1024, DPM++ 46.7 against 50.5 and 47.8 against 50.8,
+// the churn sampler 316.8 against 344.5 and 320.3 against 344.0; at 128
+// registers, spill stores 168 -> 44 bytes (DDIM, DPM++), 304 -> 136 (churn),
+// 224 -> 76 (churn step). Forced inline in every kernel
+// instead (resblock, resblock_gn and attention themselves), the samplers
+// read the same but the decoder's stage_kernel<float, true> changed its SASS
+// and read 3.847 against 3.779 ms for a decode's 4 launches; resblock_gn and
+// attention alone leave resblock out of line and the samplers as they were
+// (the DDIM sampler 159.6 ms at fpc).
+template <bool FI, typename T, typename P>
+__device__ __forceinline__ void body_resblock(const Bufs<T>& b, T* X, int R, int L, int C, int E,
+                                              int Ce, int G, const T* __restrict__ Wf,
+                                              const long long* sl, const P& prod) {
+  if constexpr (FI && P::kGn)
+    resblock_gn_body(b, X, R, L, C, E, Ce, G, Wf, sl, prod);
+  else
+    resblock(b, X, R, L, C, E, Ce, G, Wf, sl, prod);
+}
+template <bool FI, typename T, typename P>
+__device__ __forceinline__ void body_attention(const Bufs<T>& b, T* X, int R, int L, int C,
+                                               const T* __restrict__ Wf, const long long* rec,
+                                               const P& prod) {
+  if constexpr (FI)
+    attention_body(b, X, R, L, C, Wf, rec, prod);
+  else
+    attention(b, X, R, L, C, Wf, rec, prod);
+}
+
 // The network after the init conv on the block's R rows: X holds the init
 // conv's output [R][L][dim0] in T; each of its n_st stages (2 resblocks,
 // attention, k3 projection), the final resblock and the 1x1 head, whose
@@ -125,25 +159,26 @@ template <typename T, bool TC, typename Store>
 __device__ __forceinline__ void net_body(const Bufs<T>& b, int n_st, int R, int L, int E, int Ce,
                                          int G, const T* __restrict__ Wf,
                                          const long long* __restrict__ net, Store store) {
+  constexpr bool FI = TC && sizeof(T) == 4;
   T* X = b.X;
   T* OUT = b.OUT;
   for (int st = 0; st < n_st; ++st) {
     const long long* rec = net + NET_HDR + st * REC_SIZE;
     const int C = (int)rec[R_C], Cout = (int)rec[R_COUT], tc = st * TC_REC;
-    resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES1,
-             piece_products<T, TC>(b, OUT, Wf, net, tc + T_R1, PIECE_RES));
-    resblock(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES2,
-             piece_products<T, TC>(b, OUT, Wf, net, tc + T_R2, PIECE_RES));
-    attention(b, X, R, L, C, Wf, rec,
-              piece_products<T, TC>(b, OUT, Wf, net, tc + T_ATTN, PIECE_ATTN));
+    body_resblock<FI>(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES1,
+                      piece_products<T, TC>(b, OUT, Wf, net, tc + T_R1, PIECE_RES));
+    body_resblock<FI>(b, X, R, L, C, E, Ce, G, Wf, rec + R_RES2,
+                      piece_products<T, TC>(b, OUT, Wf, net, tc + T_R2, PIECE_RES));
+    body_attention<FI>(b, X, R, L, C, Wf, rec,
+                       piece_products<T, TC>(b, OUT, Wf, net, tc + T_ATTN, PIECE_ATTN));
     proj(X, OUT, R, L, C, Cout, Wf, rec,
          piece_products<T, TC>(b, OUT, Wf, net, tc + T_PROJ, PIECE_PROJ));
     T* tmp = X; X = OUT; OUT = tmp;
   }
   const long long* fin = net + NET_HDR + n_st * REC_SIZE;
   const int Cf = (int)fin[R_C];
-  resblock(b, X, R, L, Cf, E, Ce, G, Wf, fin + R_RES1,
-           piece_products<T, TC>(b, OUT, Wf, net, n_st * TC_REC + T_R1, PIECE_RES));
+  body_resblock<FI>(b, X, R, L, Cf, E, Ce, G, Wf, fin + R_RES1,
+                    piece_products<T, TC>(b, OUT, Wf, net, n_st * TC_REC + T_R1, PIECE_RES));
   head(X, R * L, Cf, Wf, fin, store);
 }
 

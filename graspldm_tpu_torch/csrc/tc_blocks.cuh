@@ -79,7 +79,7 @@
 // included); GroupNorm statistics 16 %, the FiLM and output passes 11 %,
 // softmaxes 8 %, LayerNorms 7 %, the rest below 4 % each. Deeper B
 // prefetch did not help; 4 m-tiles a warp (each weight byte read once a
-// block) spilled at 128 registers. wgmma and TMA are later work.
+// block) spilled at 128 registers. TMA is later work; wgmma, below.
 // Where a float32 sampler step goes (ddim_sampler_kernel<float>, fpc BG
 // 4096, block 0, clock64 at each barrier; 0.80 M cycles an evaluation):
 // the products' unit loops 50 % (warp 0: 0.40 M the staged ones, 44 K the
@@ -94,6 +94,36 @@
 // reads 325 ms even in the two-pass body. What gained is float32 GroupNorm
 // as one warp pass a group (resnet1d_blocks.cuh: gn_pass), which adds no
 // long-lived value (kernels.cu gives its times).
+// wgmma, tried and dropped: the float32 body's products as
+// wgmma.m64nNk16 with the operands swapped (out^T = W^T A^T: W^T's three
+// bf16 parts the 64-row register A operand, one 16-byte __ldg a lane, part
+// and k-step; the activations' parts staged K-major without swizzle as the
+// shared-memory B operand, a zero position between rows for the k3 taps, N
+// 40 for a conv and 32 dense; the six split products in two accumulators as
+// here) took 18 of an evaluation's 30 products at fpc (97.9 % of the MACs)
+// and 19 at ppc (97.5 %), and read slower in every form. The float32 DDIM
+// sampler, 100 steps at fpc BG 4096 / ppc BG 1024, mma.sync here at
+// 146.3 / 150.0 ms in the same call (H100 80GB HBM3, 700.00 W; that build
+// forced the network pieces inline in every kernel):
+//   * 256 threads, 4 k-steps loaded behind one wgmma.fence, 247 registers,
+//     no spill: 181.0 / 171.1 ms. clock64 at block 0 (fpc, an evaluation):
+//     884 K cycles against 709 K; the 18 products 387 K, the 12 left on
+//     mma.sync 81 K (all 30 on mma.sync: 422 K); the rest of the body
+//     416 K against 287 K, its CUDA-core passes at half the warps. The
+//     loads into the A registers share one scoreboard, so each fence waits
+//     for every load in flight: a group of k-steps costs an L2 latency and
+//     then its products, with no more weight bytes in flight than
+//     mma.sync's one k-step of B at 512 threads.
+//   * two register sets (one group's loads under the other's products):
+//     240.9 / 224.8 ms, 255 registers and 596 B of spill stores, every
+//     wgmma serialized by ptxas (C7512) for want of registers.
+//   * 512 threads at 128 registers: 377-387 / 398-408 ms with 1, 2 or 4
+//     k-steps a fence, 1.5-1.9 KB of spills, every wgmma serialized.
+//   * a product inside a function left out of line serializes every wgmma
+//     of the kernel (ptxas C7510): 323.3 / 288.8 ms.
+//   Untried: the weights through a shared-memory ring (cp.async or TMA),
+//   which needs 24 KB a k-step in flight at 512 threads, room the 8 rows
+//   leave none of.
 //
 // Decisions, each timed against the sources without it in one call
 // (H100 80GB HBM3, 700.00 W; full_kernel<float> at
